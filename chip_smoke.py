@@ -10,15 +10,23 @@ nx=24, nt=600, 100 trials, ngl=100, SE + Matern-1/2, 24 per-channel noise
 variances, het_noise="exact".  Phases, one JSON line each:
 
 1. device: torch/CUDA versions and the card's name and power limit;
-2. build: compile ``gpcsd_tpu_torch/csrc/quadform.cu`` for sm_90a;
+2. build: compile ``gpcsd_tpu_torch/csrc/quadform.cu`` for sm_90a; print
+   ptxas's registers and spills and ``cuobjdump -sass`` counts of the FP64
+   tensor-core (``DMMA``) and async-copy (``LDGSTS``, ``UTMALDG``)
+   instructions;
 3. kernel: quadform kernel vs its plain PyTorch version, value and
-   gradients, at (nx, nt, ntrials) = (24, 600, 100), (7, 129, 3), (69, 375, 5);
+   gradients, at ``KERNEL_SHAPES``: the main path's (24, 600, 100), the
+   paper's other shapes, and edges of the kernel's tiling (one trial, odd
+   nt, a trial over several row tiles, nx = 811 and 1000, a 1 x 8 trial);
+   two calls must give the same bits;
 4. log_prob: value and gradient at the first 8 draws of the banked paper
    posterior, against the banked CPU-f64 values and the port on the CPU;
 5. the quadform launch count of phase 4 is non-zero;
 6. fit: 2 restarts x 10 L-BFGS-B iterations on the card;
 7. timing: log-joint value+grad evals/s at the JAX bench point, and the
-   kernel vs its plain version at the main-path shape.
+   kernel vs its plain version at the main-path shape, both as device time
+   (50 calls captured in one CUDA graph, replays timed with events: no
+   host launch cost) and as eager calls timed with events.
 
 Any failure raises and the script exits non-zero.  Without CUDA, or run
 outside a checkout of the repository, it fails before printing a result.
@@ -26,6 +34,7 @@ outside a checkout of the repository, it fails before printing a result.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -35,7 +44,10 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HETX = os.path.join(ROOT, "results", "paper_nuts_hetx")
-KERNEL_SHAPES = [(24, 600, 100), (7, 129, 3), (69, 375, 5)]
+KERNEL_SHAPES = [
+    (24, 600, 100), (7, 129, 3), (69, 375, 5),
+    (24, 600, 1), (24, 601, 7), (130, 64, 2), (811, 16, 1), (1000, 16, 1), (1, 8, 1),
+]
 
 
 def emit(phase, **fields):
@@ -77,6 +89,39 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls=50, replays=5):
+    """Mean device milliseconds per call: ``calls`` calls captured in one
+    CUDA graph, its replays timed with CUDA events, after a warm-up on a
+    side stream as capture requires."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def sass_counts(lib, cuobjdump):
+    """Instruction counts in the library's SASS: FP64 tensor-core MMAs,
+    cp.async and TMA loads, and scalar FP64 FMAs."""
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("DMMA", "LDGSTS", "UTMALDG", "DFMA")}
+
+
 def phase_kernel(qf, dev):
     """Kernel vs plain version: value rtol 1e-12, gradients 1e-10 (f64,
     another summation order).  Returns the max abs value error."""
@@ -85,9 +130,11 @@ def phase_kernel(qf, dev):
     for shape in KERNEL_SHAPES:
         ins = kernel_inputs(gen, *shape, dev)
         got = float(qf.quadform_cuda(*ins))
+        again = float(qf.quadform_cuda(*ins))
         want = float(qf.quadform_reference(*ins))
         torch.cuda.synchronize()
         check(rel(got, want) <= 1e-12, f"quadform value {shape}: {got} vs {want}")
+        check(again == got, f"quadform {shape}: two calls differ ({got} vs {again})")
         worst = max(worst, abs(got - want))
         a = [t.clone().requires_grad_() for t in ins]
         b = [t.clone().requires_grad_() for t in ins]
@@ -118,9 +165,12 @@ def main():
 
     t0 = time.perf_counter()
     lib = qf.build()
+    seconds = time.perf_counter() - t0
     ptxas = [ln for ln in lib.with_suffix(".log").read_text().splitlines() if "ptxas" in ln]
-    emit("build", seconds=time.perf_counter() - t0, library=os.path.relpath(lib, ROOT),
-         ptxas=ptxas)
+    sass = sass_counts(lib, qf.cuda_tool("cuobjdump"))
+    emit("build", seconds=seconds, library=os.path.relpath(lib, ROOT), ptxas=ptxas, sass=sass)
+    check(sass["DMMA"] > 0, "the kernel library holds no FP64 tensor-core (DMMA) instruction")
+    check(sass["LDGSTS"] + sass["UTMALDG"] > 0, "the kernel library holds no async copy")
 
     max_abs_err = phase_kernel(qf, dev)
 
@@ -184,15 +234,19 @@ def main():
         value_ms = cuda_ms(lambda: bfns.loglik(theta, bY), 20)
 
     ins = kernel_inputs(torch.Generator().manual_seed(1), *KERNEL_SHAPES[0], dev)
-    plain_a = cuda_ms(lambda: qf.quadform_reference(*ins), 50)
-    kern_a = cuda_ms(lambda: qf.quadform_cuda(*ins), 50)
-    kern_b = cuda_ms(lambda: qf.quadform_cuda(*ins), 50)
-    plain_b = cuda_ms(lambda: qf.quadform_reference(*ins), 50)
-    kernel_ms, plain_ms = 0.5 * (kern_a + kern_b), 0.5 * (plain_a + plain_b)
+    kernel = lambda: qf.quadform_cuda(*ins)  # noqa: E731
+    plain = lambda: qf.quadform_reference(*ins)  # noqa: E731
+    # in turns, plain-kernel-kernel-plain, so drift between them cancels
+    dev_runs = [graph_ms(f) for f in (plain, kernel, kernel, plain)]
+    eager_runs = [cuda_ms(f, 50) for f in (plain, kernel, kernel, plain)]
+    device_ms, plain_device_ms = np.mean(dev_runs[1:3]), np.mean(dev_runs[::3])
+    kernel_ms, plain_ms = np.mean(eager_runs[1:3]), np.mean(eager_runs[::3])
     emit("timing", card=smi, log_joint_value_grad_evals_per_s=evals_per_s,
          covariances_and_eighs_ms=factor_ms, loglik_value_ms=value_ms,
+         quadform_device_ms=device_ms, quadform_plain_device_ms=plain_device_ms,
          quadform_ms=kernel_ms, quadform_plain_ms=plain_ms,
-         quadform_ms_runs=[kern_a, kern_b], quadform_plain_ms_runs=[plain_a, plain_b],
+         quadform_device_ms_runs=dev_runs[1:3], quadform_plain_device_ms_runs=dev_runs[::3],
+         quadform_ms_runs=eager_runs[1:3], quadform_plain_ms_runs=eager_runs[::3],
          shape=list(KERNEL_SHAPES[0]))
 
     print(smi)
@@ -201,7 +255,7 @@ def main():
         "source": "gpcsd_tpu_torch/csrc/quadform.cu",
         "replaces": "gpcsd_tpu/ops/pallas/quadform.py:32",
         "launches": launches, "max_abs_err": max_abs_err,
-        "ms": kernel_ms, "plain_ms": plain_ms,
+        "ms": device_ms, "plain_ms": plain_device_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

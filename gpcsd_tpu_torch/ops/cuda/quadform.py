@@ -39,15 +39,18 @@ NVCC_FLAGS = (
 launch_count = 0
 
 _lib = None
+_ready_devices: set[int] = set()  # devices where quadform_f64_init ran
 
 
-def _nvcc() -> str:
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): under
+    ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``), else on PATH."""
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / name
     if cand.exists():
         return str(cand)
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+        raise RuntimeError(f"{name} not found: set CUDA_HOME or put it on PATH")
     return found
 
 
@@ -63,7 +66,7 @@ def build() -> Path:
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+        [cuda_tool(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
@@ -77,18 +80,23 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        lib.quadform_f64.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p
-        ]
-        lib.quadform_f64.restype = ctypes.c_int
-        lib.quadform_f64_num_blocks.argtypes = [ctypes.c_int] * 3
-        lib.quadform_f64_num_blocks.restype = ctypes.c_int
-        lib.quadform_f64_max_nx.argtypes = []
-        lib.quadform_f64_max_nx.restype = ctypes.c_int
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.quadform_f64_init.argtypes = []
+        lib.quadform_f64_init.restype = i32
+        lib.quadform_f64_workspace.argtypes = [i32] * 3
+        lib.quadform_f64_workspace.restype = i64
+        lib.quadform_f64.argtypes = [ptr] * 5 + [i64, ptr] + [i32] * 3 + [ptr]
+        lib.quadform_f64.restype = i32
         lib.quadform_error_string.argtypes = [ctypes.c_int]
         lib.quadform_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _raise_on(lib, err, what):
+    if err != 0:
+        msg = lib.quadform_error_string(err).decode()
+        raise RuntimeError(f"quadform kernel {what} failed: {msg}")
 
 
 def _check(qs, qt, dinv, Y):
@@ -114,29 +122,31 @@ def quadform_reference(qs, qt, dinv, Y):
 
 
 def quadform_cuda(qs, qt, dinv, Y):
-    """Launch the CUDA kernel on the current stream of Y's device (no
-    synchronisation); inputs as :func:`quadform` checks them."""
+    """Launch the CUDA kernels on the current stream of Y's device (no
+    synchronisation); inputs as :func:`quadform` checks them.  Allocates
+    the kernels' scratch (the (ntrials*nx, nt) array ``Qs^T Y_b``, one
+    partial per block, room for Qt at an even row stride) and the output
+    with ``torch.empty``, so the call can be captured in a CUDA graph."""
     global launch_count
     if Y.device.type != "cuda":
         raise ValueError(f"quadform_cuda needs CUDA tensors, got {Y.device}")
     lib = _load()
     ntrials, nx, nt = Y.shape
-    max_nx = lib.quadform_f64_max_nx()
-    if nx > max_nx:
-        raise ValueError(f"nx={nx} exceeds the kernel's shared-memory limit nx<={max_nx}")
-    nblocks = lib.quadform_f64_num_blocks(nx, nt, ntrials)
-    partials = torch.empty(nblocks, dtype=torch.float64, device=Y.device)
+    work_elems = lib.quadform_f64_workspace(nx, nt, ntrials)
+    if work_elems < 0:
+        raise ValueError(f"quadform kernel does not take shape {tuple(Y.shape)}")
+    work = torch.empty(work_elems, dtype=torch.float64, device=Y.device)
     out = torch.empty((), dtype=torch.float64, device=Y.device)
     with torch.cuda.device(Y.device):
+        if Y.device.index not in _ready_devices:
+            _raise_on(lib, lib.quadform_f64_init(), "set-up")
+            _ready_devices.add(Y.device.index)
         err = lib.quadform_f64(
             qs.data_ptr(), qt.data_ptr(), dinv.data_ptr(), Y.data_ptr(),
-            partials.data_ptr(), out.data_ptr(), nx, nt, ntrials,
+            work.data_ptr(), work_elems, out.data_ptr(), nx, nt, ntrials,
             torch.cuda.current_stream(Y.device).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"quadform kernel launch failed: {lib.quadform_error_string(err).decode()}"
-        )
+    _raise_on(lib, err, "launch")
     launch_count += 1
     return out
 

@@ -33,9 +33,15 @@ def inputs(seed, nx, nt, ntrials):
     return [torch.tensor(a, dtype=torch.float64, device="cuda") for a in (qs, qt, dinv, Y)]
 
 
-@pytest.mark.parametrize("shape", [(24, 600, 100), (7, 129, 3), (69, 375, 5)])
+@pytest.mark.parametrize("shape", [
+    (24, 600, 100), (7, 129, 3), (69, 375, 5),
+    # edges of the kernel's tiling: one trial (less than one row tile),
+    # ragged k and j edges, a trial over several row tiles, nx = 811, 1 x 8
+    (24, 600, 1), (24, 601, 7), (130, 64, 2), (811, 16, 1), (1, 8, 1),
+])
 def test_kernel_matches_reference(shape):
-    """f64 with another summation order: value rtol 1e-12, gradients 1e-10."""
+    """f64 with another summation order: value rtol 1e-12, gradients 1e-10;
+    two calls give the same bits (fixed-order reduction)."""
     ins = inputs(9, *shape)
     before = qf.launch_count
     got = qf.quadform_cuda(*ins)
@@ -49,6 +55,17 @@ def test_kernel_matches_reference(shape):
     gb = torch.autograd.grad(qf.quadform_reference(*b), b[:3])
     for x, y in zip(ga, gb):
         torch.testing.assert_close(x, y, rtol=1e-10, atol=1e-10 * float(y.abs().max()))
+
+
+def test_kernel_takes_unaligned_qt():
+    """A Qt that is contiguous but only 8-byte aligned cannot back a tensor
+    map: the kernel copies it to an aligned scratch first."""
+    qs, qt, dinv, Y = inputs(4, 24, 64, 3)
+    storage = torch.empty(qt.numel() + 1, dtype=torch.float64, device="cuda")
+    qt_off = storage[1:].view(qt.shape).copy_(qt)
+    assert qt_off.data_ptr() % 16 == 8 and qt_off.is_contiguous()
+    got = float(qf.quadform_cuda(qs, qt_off, dinv, Y))
+    assert np.isclose(got, float(qf.quadform_reference(qs, qt, dinv, Y)), rtol=1e-12, atol=0.0)
 
 
 def test_wrapper_rejects_mixed_devices():

@@ -182,7 +182,9 @@ def quadform_inputs(seed, nx, nt, ntrials):
 
 
 class TestQuadform:
-    @pytest.mark.parametrize("shape", [(8, 32, 5), (7, 129, 3)])
+    @pytest.mark.parametrize(
+        "shape", [(8, 32, 5), (7, 129, 3), (24, 600, 1), (24, 601, 7), (130, 64, 2), (1, 8, 1)]
+    )
     def test_reference_matches_jax(self, shape):
         """rtol 1e-12 against the f64 XLA einsum; 1e-5 against the Pallas
         kernel in interpret mode, which casts everything to f32."""
