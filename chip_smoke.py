@@ -5,9 +5,10 @@
 
 Drives the port's main path (covariances -> two float64 eighs -> Kronecker
 log-joint value and gradient through the hand-written quadform kernel ->
-scipy L-BFGS-B MAP steps) at the auditory paper configuration: GPCSD1D,
-nx=24, nt=600, 100 trials, ngl=100, SE + Matern-1/2, 24 per-channel noise
-variances, het_noise="exact".  Phases, one JSON line each:
+scipy L-BFGS-B MAP steps -> Laplace Hessian -> whitened dense-metric NUTS
+with 4 chains -> R-hat/ESS -> predict) at the auditory paper configuration:
+GPCSD1D, nx=24, nt=600, 100 trials, ngl=100, SE + Matern-1/2, 24
+per-channel noise variances, het_noise="exact".  Phases, one JSON line each:
 
 1. device: torch/CUDA versions and the card's name and power limit;
 2. build: compile ``gpcsd_tpu_torch/csrc/quadform.cu`` for sm_90a; print
@@ -26,10 +27,22 @@ variances, het_noise="exact".  Phases, one JSON line each:
 7. timing: log-joint value+grad evals/s at the JAX bench point, and the
    kernel vs its plain version at the main-path shape, both as device time
    (50 calls captured in one CUDA graph, replays timed with events: no
-   host launch cost) and as eager calls timed with events.
+   host launch cost) and as eager calls timed with events;
+8. predict: ``GPCSD1D.predict(x, t[::4], type="both")`` with the
+   parameters at the mean of the banked draws, card vs CPU;
+9. hessian: ``laplace_hessian`` at that centre (60 gradients in one batched
+   call), card vs CPU, and ``H^-1`` against the banked draws' covariance;
+10. nuts: ``sample_posterior`` (4 chains, dense metric pooled over chains
+   as in the banked run, whitened by that Hessian, max_depth 7) from that
+   centre: health, launch count against the sampler's own leapfrog count,
+   moments against the banked posterior, ms per batched leapfrog and the
+   device's busy share under the profiler.
 
-Any failure raises and the script exits non-zero.  Without CUDA, or run
-outside a checkout of the repository, it fails before printing a result.
+The quadform launch count is set to 0 before each stretch of the main path
+(log_prob + fit, hessian, nuts) and read after it; ``predict`` solves with
+the factors and launches no kernel.  Any failure raises and the script
+exits non-zero.  Without CUDA, or run outside a checkout of the repository,
+it fails before printing a result.
 """
 
 import json
@@ -44,6 +57,11 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HETX = os.path.join(ROOT, "results", "paper_nuts_hetx")
+#: NUTS phase: transitions per chain (the whole script stays under 300 s)
+NUTS_WARMUP, NUTS_SAMPLES, NUTS_CHAINS, NUTS_MAX_DEPTH = 40, 30, 4, 7
+#: H100 SXM data-sheet peaks used for the kernel's bound
+PEAK_FP64_TENSOR_FLOPS = 67e12
+PEAK_HBM_BYTES_PER_S = 3.35e12
 KERNEL_SHAPES = [
     (24, 600, 100), (7, 129, 3), (69, 375, 5),
     (24, 600, 1), (24, 601, 7), (130, 64, 2), (811, 16, 1), (1000, 16, 1), (1, 8, 1),
@@ -147,75 +165,201 @@ def phase_kernel(qf, dev):
     return worst
 
 
-def main():
-    check(torch.cuda.is_available(), "CUDA is not available: this check needs a GPU")
-    sys.path.insert(0, ROOT)
-    from gpcsd_tpu_torch import paper
-    from gpcsd_tpu_torch.infer.map import sample_restarts, value_and_grad
+def max_rel(a, b):
+    """Largest absolute difference over the largest magnitude of ``b``."""
+    return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+
+def quadform_bound_ms(nx, nt, ntrials):
+    """Least milliseconds the card could take for one quadform call: the
+    larger of its operations (the two products ``Qs^T Y_b`` and ``(.) Qt``)
+    at the FP64 tensor-core peak and its bytes (Y, Qt, Qs, dinv read once,
+    one scalar written) at the memory rate."""
+    ops = 2.0 * ntrials * nx * nt * (nt + nx)
+    nbytes = 8.0 * (ntrials * nx * nt + nt * nt + nx * nx + nx * nt + 1)
+    t_ops, t_bytes = ops / PEAK_FP64_TENSOR_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def set_params(model, u):
+    """Write the unconstrained vector ``u`` into the model's parameters."""
+    fns = model._fns()
+    model._set_theta(fns.param_set.unpack(torch.tensor(u, device=model.device)))
+
+
+def phase_predict(gpu, cpu, time_ms):
+    """predict on the card against the port on the CPU: rel. error <= 1e-9
+    in the max norm (two float64 eigensolvers behind the same solve)."""
+    t_sub = time_ms[time_ms < 0][::4]
+    t0 = time.perf_counter()
+    gpu.predict(gpu.x, t_sub, type="both")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    cpu.predict(cpu.x, t_sub, type="both")
+    shape = (gpu.x.shape[0], t_sub.size, gpu.lfp.shape[2])
+    errs = {}
+    for name in ("csd_pred", "lfp_pred"):
+        got, want = getattr(gpu, name), getattr(cpu, name)
+        check(got.shape == shape, f"predict: {name} has shape {got.shape}, expected {shape}")
+        check(np.all(np.isfinite(got)), f"predict: {name} is not finite")
+        errs[name] = max_rel(got, want)
+        for i, (a, b) in enumerate(zip(getattr(gpu, name + "_list"), getattr(cpu, name + "_list"))):
+            check(a.shape == shape, f"predict: {name}_list[{i}] has shape {a.shape}")
+            errs[f"{name}_list{i}"] = max_rel(a, b)
+    # how well the posterior-mean LFP at the electrodes reproduces the data
+    resid = gpu.lfp_pred - gpu.lfp[:, ::4, :]
+    emit("predict", seconds=seconds, shape=list(shape), rel_err_vs_cpu=errs,
+         lfp_residual_rms=float(np.sqrt(np.mean(resid ** 2))),
+         lfp_rms=float(np.sqrt(np.mean(gpu.lfp ** 2))))
+    check(max(errs.values()) <= 1e-9, f"predict CUDA vs CPU above 1e-9: {errs}")
+
+
+def phase_hessian(qf, gpu, cpu, u_center, banked_u):
+    """Laplace Hessian on the card: finite, symmetric, positive definite
+    after the floor, and against the CPU's: within 3e-4 of max|H|, and
+    within 1e-8 on the temporal 4 x 4 block.  The stencil divides the two
+    eigensolvers' gradient difference by 2h = 2e-4: ~1e-5 relative on the
+    spatial and noise components (see the log_prob phase), so ~1e-4 of
+    max|H| there, and ~1e-10 on the temporal ones.  On an H100 the readings
+    are 1.014e-4 and 4.2e-10, the same in every run; each limit leaves a
+    factor of 3 (25 on the temporal block) and no more."""
+    from gpcsd_tpu_torch.models.inference_api import laplace_hessian, whitening_from_hessian
+
+    qf.launch_count = 0
+    t0 = time.perf_counter()
+    H = laplace_hessian(gpu._fns(), u_center, gpu._Y())
+    seconds = time.perf_counter() - t0
+    launches = qf.launch_count
+    t0 = time.perf_counter()
+    H_cpu = laplace_hessian(cpu._fns(), u_center, cpu._Y())
+    cpu_seconds = time.perf_counter() - t0
+    w = np.linalg.eigvalsh(H)
+    A, _ = whitening_from_hessian(H)
+    wa = np.linalg.eigvalsh(A)
+    cov_banked = np.cov(banked_u.T)
+    diag_rel = np.abs(np.diag(np.linalg.inv(H)) / np.diag(cov_banked) - 1.0)
+    emit("hessian", seconds=seconds, cpu_seconds=cpu_seconds, launches=launches,
+         eig_min=float(w[0]), eig_max=float(w[-1]), whitening_eig_min=float(wa[0]),
+         whitening_eig_max=float(wa[-1]), rel_err_vs_cpu=max_rel(H, H_cpu),
+         rel_err_vs_cpu_temporal=float(np.abs(H - H_cpu)[2:6, 2:6].max() / np.abs(H_cpu).max()),
+         inv_diag_vs_banked_cov_max_rel=float(diag_rel.max()))
+    check(np.all(np.isfinite(H)), "hessian: non-finite entries")
+    check(np.array_equal(H, H.T), "hessian: not symmetric")
+    check(np.all(np.isfinite(A)) and wa[0] > 0, "hessian: whitening map is not positive definite")
+    check(launches == 2 * u_center.size,
+          f"hessian: {launches} quadform launches for {2 * u_center.size} stencil points")
+    check(max_rel(H, H_cpu) <= 3e-4, "hessian CUDA vs CPU above 3e-4 of max|H|")
+    check(np.abs(H - H_cpu)[2:6, 2:6].max() <= 1e-8 * np.abs(H_cpu).max(),
+          "hessian CUDA vs CPU, temporal block, above 1e-8 of max|H|")
+    return H, launches
+
+
+def leapfrog_ms(gpu, us, calls=5):
+    """Milliseconds per batched leapfrog of ``len(us)`` chains (host clock
+    around synchronised calls, after one warm-up call)."""
+    from gpcsd_tpu_torch.infer.hmc import leapfrog
+    from gpcsd_tpu_torch.models.core import value_and_grad_rows
+
+    fns, Y = gpu._fns(), gpu._Y()
+    vg = lambda z: value_and_grad_rows(lambda u: fns.log_prob(u, Y), z)  # noqa: E731
+    z = torch.tensor(us, device=gpu.device)
+    r = torch.zeros_like(z)
+    step = torch.full((z.shape[0],), 1e-6, dtype=z.dtype, device=z.device)
+    _, grad = vg(z)
+    leapfrog(vg, z, r, grad, step, torch.ones_like(z))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        leapfrog(vg, z, r, grad, step, torch.ones_like(z))
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / calls
+
+
+def profiled_busy_share(gpu, H, transitions=3):
+    """Device time over a few NUTS transitions of 4 chains, from
+    ``torch.profiler``: the summed durations of the device's kernels and
+    copies, per quadform launch (one launch is one chain's leapfrog) and as
+    a share of the window's wall time.  The profiler's own cost inflates
+    that wall time, so the caller also sets the device time per launch
+    against the unprofiled phase's wall time per launch: an estimate
+    (``device_busy_share_est``) from two different runs, not a reading of
+    the phase itself."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from gpcsd_tpu_torch.ops.cuda import quadform as qf
 
-    dev = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    emit("device", torch=torch.__version__, cuda=torch.version.cuda, name=name,
-         count=torch.cuda.device_count(), nvidia_smi=smi)
+    kw = dict(n_chains=NUTS_CHAINS, num_warmup=0, num_samples=transitions, seed=1,
+              max_depth=NUTS_MAX_DEPTH, laplace_hessian=H, dense_mass=True)
+    torch.cuda.synchronize()
+    before = qf.launch_count
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        post = gpu.sample_posterior(**kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) * 1e-6
+    check(busy > 0, "the profiler recorded no device time")
+    top = sorted(((e.key, getattr(e, "self_device_time_total", 0.0)) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA), key=lambda kv: -kv[1])[:6]
+    launches = qf.launch_count - before
+    return {"busy_share_profiled": busy / wall, "wall_seconds": wall, "device_seconds": busy,
+            "launches": launches, "device_ms_per_launch": 1e3 * busy / launches,
+            "leapfrogs_sampling": int(post.diagnostics["num_steps"].sum()),
+            "top_kernels_us": [[k[:40], v] for k, v in top]}
 
-    t0 = time.perf_counter()
-    lib = qf.build()
-    seconds = time.perf_counter() - t0
-    ptxas = [ln for ln in lib.with_suffix(".log").read_text().splitlines() if "ptxas" in ln]
-    sass = sass_counts(lib, qf.cuda_tool("cuobjdump"))
-    emit("build", seconds=seconds, library=os.path.relpath(lib, ROOT), ptxas=ptxas, sass=sass)
-    check(sass["DMMA"] > 0, "the kernel library holds no FP64 tensor-core (DMMA) instruction")
-    check(sass["LDGSTS"] + sass["UTMALDG"] > 0, "the kernel library holds no async copy")
 
-    max_abs_err = phase_kernel(qf, dev)
-
-    # ---- the main path: counts from here to the end of the fit
-    lfp, time_ms, _ = paper.paper_surrogate(0, 1200, 100, device=dev)
-    draws = np.load(os.path.join(HETX, "posterior_samples.npz"))["raw_u"].reshape(-1, 30)[:8]
-    banked = np.load(os.path.join(HETX, "logp64_draws.npy"))[:8]
-    gpu = paper.build_model(lfp, time_ms, het_noise="exact", device=dev)
-    cpu = paper.build_model(lfp, time_ms, het_noise="exact", device="cpu")
-    gfns, gY = gpu._fns(), gpu._Y()
-    cfns, cY = cpu._fns(), cpu._Y()
+def phase_nuts(qf, gpu, H, u_center, banked_u, smi):
+    """Whitened dense-metric NUTS from the banked posterior's centre."""
     qf.launch_count = 0
-    worst = {"banked": 0.0, "cpu_value": 0.0, "cpu_grad": 0.0, "cpu_grad_temporal": 0.0}
-    for u, want in zip(draws, banked):
-        v, g = value_and_grad(lambda ut: gfns.log_prob(ut, gY), u, dev)
-        vc, gc = value_and_grad(lambda ut: cfns.log_prob(ut, cY), u, "cpu")
-        check(np.isfinite(v) and np.all(np.isfinite(g)), "non-finite log_prob on the card")
-        worst["banked"] = max(worst["banked"], rel(v, want))
-        worst["cpu_value"] = max(worst["cpu_value"], rel(v, vc))
-        worst["cpu_grad"] = max(worst["cpu_grad"], rel_norm(g, gc))
-        worst["cpu_grad_temporal"] = max(worst["cpu_grad_temporal"], rel_norm(g[2:6], gc[2:6]))
-    launches_log_prob = qf.launch_count
-    emit("log_prob", draws=len(draws), launches=launches_log_prob, **worst)
-    check(worst["banked"] <= 1e-8, "log_prob vs banked logp64_draws.npy above 1e-8")
-    check(worst["cpu_value"] <= 1e-9, "log_prob CUDA vs CPU above 1e-9")
-    # the spatial (R, ell, noise) components carry ~1e-5 of eigensolver-
-    # dependent regularization bias; the temporal ones do not
-    check(worst["cpu_grad"] <= 1e-4, "gradient CUDA vs CPU above 1e-4 in norm")
-    check(worst["cpu_grad_temporal"] <= 1e-6, "temporal gradient CUDA vs CPU above 1e-6")
-    check(launches_log_prob > 0, "the log-joint did not go through the quadform kernel")
-    emit("launch_count", launches=launches_log_prob)
-
     t0 = time.perf_counter()
-    res = gpu.fit(n_restarts=2, backend="scipy", seed=0, options={"maxiter": 10})
-    fit_s = time.perf_counter() - t0
+    post = gpu.sample_posterior(
+        n_chains=NUTS_CHAINS, num_warmup=NUTS_WARMUP, num_samples=NUTS_SAMPLES, seed=0,
+        max_depth=NUTS_MAX_DEPTH, init="params_jitter", laplace=True, laplace_hessian=H,
+        dense_mass=True, pool_warmup=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
     launches = qf.launch_count
-    # ---- end of the main path
-    u0s = sample_restarts(gfns.param_set, np.random.default_rng(0), 2)
-    nll0 = np.array([value_and_grad(lambda ut: gfns.neg_log_joint(ut, gY), u, dev)[0] for u in u0s])
-    emit("fit", seconds=fit_s, nll_start=nll0.tolist(), nll_end=res.nll_values.tolist(),
-         nll_best=res.nll_best, messages=res.messages)
-    check(np.isfinite(res.nll_best), "MAP fit: best NLL is not finite")
-    check(np.all(res.nll_values <= nll0), "MAP fit: a restart ended above its start")
+    res, d = post.raw, post.diagnostics
+    u = res.samples.cpu().numpy()
+    steps_sampling = int(d["num_steps"].sum())
+    sd = banked_u.std(axis=0)
+    z = (u.reshape(-1, u.shape[-1]).mean(axis=0) - banked_u.mean(axis=0)) / sd
+    lf1 = leapfrog_ms(gpu, banked_u[:1])
+    lf4 = leapfrog_ms(gpu, banked_u[:4])
+    busy = profiled_busy_share(gpu, H)
+    emit("nuts", card=smi, seconds=seconds, chains=NUTS_CHAINS, num_warmup=NUTS_WARMUP,
+         num_samples=NUTS_SAMPLES, max_depth=NUTS_MAX_DEPTH, launches=launches,
+         leapfrogs_sampling=steps_sampling,
+         draws_per_s=NUTS_CHAINS * NUTS_SAMPLES / seconds,
+         transitions_per_s=NUTS_CHAINS * (NUTS_WARMUP + NUTS_SAMPLES) / seconds,
+         ms_per_launch=1e3 * seconds / launches,
+         device_busy_share_est=busy["device_ms_per_launch"] / (1e3 * seconds / launches),
+         leapfrogs_per_draw=steps_sampling / d["num_steps"].size,
+         accept_mean=float(d["accept_prob"].mean()), step_size=d["step_size"].tolist(),
+         divergent=int(d["diverging"].sum()), max_rhat=float(max(d["rhat"].values())),
+         min_ess_bulk=float(min(d["ess"].values())), min_ess_tail=float(min(d["ess_tail"].values())),
+         max_abs_z_vs_banked=float(np.abs(z).max()),
+         leapfrog_ms_1_chain=lf1, leapfrog_ms_4_chains=lf4, profile=busy)
+    check(np.all(np.isfinite(u)) and bool(torch.isfinite(res.logp).all()),
+          "nuts: a sample or log-density is not finite")
+    check(u.shape == (NUTS_CHAINS, NUTS_SAMPLES, u_center.size), f"nuts: samples have shape {u.shape}")
+    check(launches >= steps_sampling,
+          f"nuts: {launches} quadform launches for {steps_sampling} sampling leapfrogs")
+    check(d["step_size"].min() >= 1e-3, f"nuts: a chain's step size collapsed: {d['step_size']}")
+    check(d["diverging"].mean() <= 0.05, "nuts: over 5% of the sampling draws diverged")
+    check(np.abs(z).max() <= 1.0,
+          f"nuts: a parameter's mean is {np.abs(z).max():.2f} banked sd from the banked mean")
+    return launches
 
-    # ---- timing
+
+def phase_timing(qf, dev, smi):
+    """Log-joint value+grad evals/s at the bench point, and the quadform
+    kernel against its plain version at the main-path shape.  Returns the
+    kernel's and the plain version's device milliseconds."""
+    from gpcsd_tpu_torch.infer.map import value_and_grad
+
     bench = bench_model(dev)
     bfns, bY = bench._fns(), bench._Y()
     u0 = bfns.param_set.pack(bench._theta()).cpu().numpy()
@@ -248,14 +392,105 @@ def main():
          quadform_device_ms_runs=dev_runs[1:3], quadform_plain_device_ms_runs=dev_runs[::3],
          quadform_ms_runs=eager_runs[1:3], quadform_plain_ms_runs=eager_runs[::3],
          shape=list(KERNEL_SHAPES[0]))
+    return device_ms, plain_device_ms
 
+
+def main():
+    check(torch.cuda.is_available(), "CUDA is not available: this check needs a GPU")
+    sys.path.insert(0, ROOT)
+    from gpcsd_tpu_torch import paper
+    from gpcsd_tpu_torch.infer.map import sample_restarts, value_and_grad
+    from gpcsd_tpu_torch.ops.cuda import quadform as qf
+
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    emit("device", torch=torch.__version__, cuda=torch.version.cuda, name=name,
+         count=torch.cuda.device_count(), nvidia_smi=smi)
+
+    t0 = time.perf_counter()
+    lib = qf.build()
+    seconds = time.perf_counter() - t0
+    ptxas = [ln for ln in lib.with_suffix(".log").read_text().splitlines() if "ptxas" in ln]
+    sass = sass_counts(lib, qf.cuda_tool("cuobjdump"))
+    emit("build", seconds=seconds, library=os.path.relpath(lib, ROOT), ptxas=ptxas, sass=sass)
+    check(sass["DMMA"] > 0, "the kernel library holds no FP64 tensor-core (DMMA) instruction")
+    check(sass["LDGSTS"] + sass["UTMALDG"] > 0, "the kernel library holds no async copy")
+
+    max_abs_err = phase_kernel(qf, dev)
+
+    # ---- the main path: counts from here to the end of the fit
+    lfp, time_ms, _ = paper.paper_surrogate(0, 1200, 100, device=dev)
+    banked_u = np.load(os.path.join(HETX, "posterior_samples.npz"))["raw_u"].reshape(-1, 30)
+    draws = banked_u[:8]
+    banked = np.load(os.path.join(HETX, "logp64_draws.npy"))[:8]
+    gpu = paper.build_model(lfp, time_ms, het_noise="exact", device=dev)
+    cpu = paper.build_model(lfp, time_ms, het_noise="exact", device="cpu")
+    gfns, gY = gpu._fns(), gpu._Y()
+    cfns, cY = cpu._fns(), cpu._Y()
+    qf.launch_count = 0
+    worst = {"banked": 0.0, "cpu_value": 0.0, "cpu_grad": 0.0, "cpu_grad_temporal": 0.0}
+    for u, want in zip(draws, banked):
+        v, g = value_and_grad(lambda ut: gfns.log_prob(ut, gY), u, dev)
+        vc, gc = value_and_grad(lambda ut: cfns.log_prob(ut, cY), u, "cpu")
+        check(np.isfinite(v) and np.all(np.isfinite(g)), "non-finite log_prob on the card")
+        worst["banked"] = max(worst["banked"], rel(v, want))
+        worst["cpu_value"] = max(worst["cpu_value"], rel(v, vc))
+        worst["cpu_grad"] = max(worst["cpu_grad"], rel_norm(g, gc))
+        worst["cpu_grad_temporal"] = max(worst["cpu_grad_temporal"], rel_norm(g[2:6], gc[2:6]))
+    launches_log_prob = qf.launch_count
+    emit("log_prob", draws=len(draws), launches=launches_log_prob, **worst)
+    check(worst["banked"] <= 1e-8, "log_prob vs banked logp64_draws.npy above 1e-8")
+    check(worst["cpu_value"] <= 1e-9, "log_prob CUDA vs CPU above 1e-9")
+    # the spatial (R, ell, noise) components carry ~1e-5 of eigensolver-
+    # dependent regularization bias; the temporal ones do not
+    check(worst["cpu_grad"] <= 1e-4, "gradient CUDA vs CPU above 1e-4 in norm")
+    check(worst["cpu_grad_temporal"] <= 1e-6, "temporal gradient CUDA vs CPU above 1e-6")
+    check(launches_log_prob > 0, "the log-joint did not go through the quadform kernel")
+    emit("launch_count", launches=launches_log_prob)
+
+    t0 = time.perf_counter()
+    res = gpu.fit(n_restarts=2, backend="scipy", seed=0, options={"maxiter": 10})
+    fit_s = time.perf_counter() - t0
+    launches_map = qf.launch_count
+    # ---- end of the log_prob + fit stretch of the main path
+    u0s = sample_restarts(gfns.param_set, np.random.default_rng(0), 2)
+    nll0 = np.array([value_and_grad(lambda ut: gfns.neg_log_joint(ut, gY), u, dev)[0] for u in u0s])
+    emit("fit", seconds=fit_s, nll_start=nll0.tolist(), nll_end=res.nll_values.tolist(),
+         nll_best=res.nll_best, messages=res.messages)
+    check(np.isfinite(res.nll_best), "MAP fit: best NLL is not finite")
+    check(np.all(res.nll_values <= nll0), "MAP fit: a restart ended above its start")
+
+    # before the nuts phase, whose profiler may leave its tracing cost on the
+    # process's later launches
+    device_ms, plain_device_ms = phase_timing(qf, dev, smi)
+
+    # ---- the posterior path, at the banked posterior's centre (the 2 x 10
+    # MAP steps above stop far from the mode, where a Hessian is useless)
+    u_center = banked_u.mean(axis=0)
+    set_params(gpu, u_center)
+    set_params(cpu, u_center)
+    phase_predict(gpu, cpu, time_ms)
+    H, launches_hessian = phase_hessian(qf, gpu, cpu, u_center, banked_u)
+    launches_nuts = phase_nuts(qf, gpu, H, u_center, banked_u, smi)
+    launches_by_phase = {"log_prob": launches_log_prob, "fit": launches_map - launches_log_prob,
+                         "hessian": launches_hessian, "nuts": launches_nuts}
+
+    bound_ms, bound_by = quadform_bound_ms(*KERNEL_SHAPES[0])
     print(smi)
+    # library_ms: no single PyTorch call computes the whitened, weighted sum
+    # of squares (the plain version is two matmuls, a multiply and a sum)
     print(json.dumps({"kernels": [{
         "name": "quadform", "route": "cuda",
         "source": "gpcsd_tpu_torch/csrc/quadform.cu",
         "replaces": "gpcsd_tpu/ops/pallas/quadform.py:32",
-        "launches": launches, "max_abs_err": max_abs_err,
+        "launches": sum(launches_by_phase.values()), "launches_by_phase": launches_by_phase,
+        "max_abs_err": max_abs_err,
         "ms": device_ms, "plain_ms": plain_device_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

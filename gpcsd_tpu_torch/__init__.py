@@ -3,8 +3,9 @@
 A port of the JAX package ``gpcsd_tpu`` (which stays the reference), module
 for module: the quadrature covariances, the factored Kronecker marginal
 likelihood with a hand-written CUDA kernel for its quadratic form, the
-``GPCSD1D`` model and its scipy MAP fit.  Float64 on every device.  This
-package imports neither JAX nor ``gpcsd_tpu``.
+``GPCSD1D`` model with its scipy MAP fit, Laplace-whitened dense-metric
+NUTS posterior and predictions.  Float64 on every device, and the card is
+the default device.  This package imports neither JAX nor ``gpcsd_tpu``.
 """
 
 from . import config  # noqa: F401

@@ -18,8 +18,12 @@ DTYPE = torch.float64
 JITTER_1D = 1e-8
 JITTER_2D = 1e-7
 
+#: Where every entry point of the package runs unless its caller passes
+#: ``device=``: the card.  The CPU is used only when asked for by name.
+DEFAULT_DEVICE = "cuda"
 
-def get_device(name) -> torch.device:
+
+def get_device(name=DEFAULT_DEVICE) -> torch.device:
     """``torch.device`` for ``name``; raises when CUDA is asked for and
     absent.  It never falls back to the CPU."""
     dev = torch.device(name)

@@ -1,11 +1,16 @@
-"""Carry parameter values across from the JAX package (as numpy).
+"""Carry parameter values and sampler state across from the JAX package
+(as numpy).
 
 Both schemas of ``gpcsd_tpu``'s GPCSD1D are accepted: the flat-named theta
 of ``GPCSD1D._theta()`` (``R``, ``ell``, ``tm{i}_ell``, ``tm{i}_sigma2``,
 ``sig2n``) and the reference-style dict of ``extract_model_params()``
 (``R``, ``sig2n``, ``spatial_ell``, ``temporal_ell_list``,
 ``temporal_sigma2_list``).  Values may be numpy arrays or floats, so no
-JAX type crosses into this package.
+JAX type crosses into this package.  Sampler state crosses the same way:
+:func:`nuts_result_from_numpy` takes the fields of a JAX ``NUTSResult`` or
+the arrays of a banked ``posterior_samples.npz``, and
+:func:`hessian_from_numpy` a Laplace Hessian, so that both packages can be
+fed the same centre, Hessian and metric.
 """
 
 from __future__ import annotations
@@ -13,8 +18,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import config
 from .config import DTYPE
+from .infer.nuts import NUTSResult
 from .models.gpcsd1d import GPCSD1D
+from .models.inference_api import load_hessian
 
 
 def _as_theta_schema(d) -> dict:
@@ -28,9 +36,10 @@ def _as_theta_schema(d) -> dict:
     return theta
 
 
-def theta_from_numpy(d, device="cpu") -> dict:
+def theta_from_numpy(d, device=config.DEFAULT_DEVICE) -> dict:
     """Flat-named theta of float64 tensors on ``device`` (copies) from
     either schema."""
+    device = config.get_device(device)
     return {
         k: torch.tensor(np.asarray(v, dtype=np.float64), dtype=DTYPE, device=device)
         for k, v in _as_theta_schema(d).items()
@@ -53,3 +62,43 @@ def model_from_reference_params(lfp, x, t, params, **kw) -> GPCSD1D:
         "temporal_sigma2_list": [float(theta[f"tm{i}_sigma2"]) for i in range(n)],
     })
     return m
+
+
+#: names of the sampler's fields in a banked ``posterior_samples.npz``
+_BANKED_NAMES = {
+    "samples": "raw_u", "num_steps": "diag_num_steps", "diverging": "diag_diverging",
+    "step_size": "diag_step_size", "accept_prob": "diag_accept_prob",
+    "inv_mass": "diag_inv_mass",
+}
+
+
+def nuts_result_from_numpy(d, device=config.DEFAULT_DEVICE) -> NUTSResult:
+    """The port's :class:`NUTSResult` (tensors on ``device``) from a mapping
+    of numpy arrays: the fields of a JAX ``NUTSResult`` (``res._asdict()``)
+    or an opened ``posterior_samples.npz`` of a paper run (``raw_u``,
+    ``logp``, ``diag_num_steps``, ...).  ``samples`` and ``logp`` must be
+    there; a field the source does not hold is None."""
+    device = config.get_device(device)
+
+    def field(name):
+        for key in (name, _BANKED_NAMES.get(name)):
+            if key is not None and key in d:
+                a = np.asarray(d[key])
+                if a.dtype.kind == "f":
+                    a = a.astype(np.float64)
+                elif a.dtype.kind in "iu":
+                    a = a.astype(np.int64)
+                return torch.tensor(a, device=device)
+        if name in ("samples", "logp"):
+            raise KeyError(f"no {name!r} (or {_BANKED_NAMES.get(name)!r}) among {list(d)}")
+        return None
+
+    return NUTSResult(*(field(name) for name in NUTSResult._fields))
+
+
+def hessian_from_numpy(H, dim=None) -> np.ndarray:
+    """A Laplace Hessian for ``sample_posterior(laplace_hessian=...)`` from
+    the other package's array (anything ``np.asarray`` takes) or the path
+    of an ``.npz`` with key ``H``: (dim, dim) float64 numpy, checked to be
+    square.  ``sample_posterior`` symmetrizes what it is given."""
+    return load_hessian(H, dim)

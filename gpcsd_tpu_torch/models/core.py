@@ -7,6 +7,13 @@ closures (``gpcsd1d.py:153-191``).  The same ``log_prob`` serves MAP (as
 ``neg_log_joint``, no Jacobian, matching the reference objective) and the
 samplers (with the log-det-Jacobian of the exp bijector).  Gradients come
 from ``torch.autograd``.
+
+Where the JAX package maps these functions over chains or stencil points
+with ``jax.vmap``, here the batch is written out: ``log_prob``,
+``neg_log_joint`` and ``log_prior_u`` take ``u`` of shape ``(dim,)`` or
+``(C, dim)`` and return a scalar or ``(C,)``, with one batched ``eigh``
+per factor and one quadform call per row.
+:func:`value_and_grad_rows` differentiates all rows in one backward.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ class ModelFns(NamedTuple):
     param_set: ParamSet
     build_ks: Callable  # theta -> (nx, nx) LFP-LFP spatial cov (incl. jitter)
     build_kt: Callable  # theta, t, tprime -> (nt, ntp) summed temporal cov
+    build_kt_components: Callable  # theta, t, tprime -> list of (nt, ntp)
     build_factors: Callable  # theta -> KronFactors (eig of Ks, Kt, + noise)
     loglik: Callable  # theta, Y -> scalar
     neg_log_joint: Callable  # u, Y -> scalar  (MAP objective, no Jacobian)
@@ -61,15 +69,16 @@ def make_model_fns(
     def full_theta(theta: Dict) -> Dict:
         return {**theta, **fixed} if fixed else theta
 
-    def build_kt(theta: Dict, t=None, tprime=None):
+    def build_kt_components(theta: Dict, t=None, tprime=None):
         tt = t_data if t is None else t
         tp = t_data if tprime is None else tprime
-        total = 0.0
-        for i, kind in enumerate(temporal_kinds):
-            total = total + TEMPORAL_KERNELS[kind](
-                tt, tp, theta[f"tm{i}_ell"], theta[f"tm{i}_sigma2"]
-            )
-        return total
+        return [
+            TEMPORAL_KERNELS[kind](tt, tp, theta[f"tm{i}_ell"], theta[f"tm{i}_sigma2"])
+            for i, kind in enumerate(temporal_kinds)
+        ]
+
+    def build_kt(theta: Dict, t=None, tprime=None):
+        return sum(build_kt_components(theta, t, tprime))
 
     def build_factors(theta: Dict):
         theta = full_theta(theta)
@@ -95,6 +104,7 @@ def make_model_fns(
         param_set=param_set,
         build_ks=build_ks,
         build_kt=build_kt,
+        build_kt_components=build_kt_components,
         build_factors=build_factors,
         loglik=loglik,
         neg_log_joint=neg_log_joint,
@@ -102,3 +112,44 @@ def make_model_fns(
         log_prior_u=log_prior_u,
         full_theta=full_theta,
     )
+
+
+def value_and_grad_rows(fn: Callable, u: torch.Tensor):
+    """``fn(u)`` and its gradient for every row of ``u``.
+
+    ``fn`` maps ``(C, dim)`` to ``(C,)`` with independent rows (as the
+    batched ``log_prob`` does), so one backward of the sum gives all ``C``
+    gradients.  Both results are detached, on the device of ``u``.
+
+    :return: ``(values (C,), gradients (C, dim))``
+    """
+    u = u.detach().requires_grad_(True)
+    f = fn(u)
+    (g,) = torch.autograd.grad(f.sum(), u)
+    return f.detach(), g
+
+
+def posterior_predict(fns: ModelFns, theta: Dict, Y, kphig=None, kphi=None,
+                      t_data=None, t_star=None):
+    """Factored posterior mean prediction per temporal component.
+
+    Returns a dict with optional keys ``'csd'`` and ``'lfp'``, each a tuple
+    ``(total, per_component_list)`` of tensors (ntrials, nz, ntstar).
+    Mirrors reference ``GPCSD1D.predict`` (``gpcsd1d.py:248-293``) through
+    :func:`gpcsd_tpu_torch.ops.kronlik.kron_solve`: no dense Kronecker
+    product is formed.
+
+    :param kphig: (nx, nz) LFP-CSD spatial cross-covariance, or None
+    :param kphi: (nx, nz) LFP-LFP spatial cross-covariance, or None
+    :param t_data, t_star: data and prediction times, tensors on the
+        device of ``Y``
+    """
+    V = kronlik.kron_solve(fns.build_factors(theta), Y)
+    kt_stars = fns.build_kt_components(theta, t=t_data, tprime=t_star)
+    out = {}
+    for name, kxz in (("csd", kphig), ("lfp", kphi)):
+        if kxz is None:
+            continue
+        comps = [kronlik.kron_cross_mean(kxz, kts, V) for kts in kt_stars]
+        out[name] = (sum(comps), comps)
+    return out

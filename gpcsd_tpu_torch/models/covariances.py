@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import config
 from ..ops import kernels as k_ops
 from ..ops import spatial as sp_ops
 from ..ops.quadrature import gauss_legendre
@@ -32,8 +33,9 @@ def _flat(x):
 
 
 def _on(a, device):
-    """Flat float64 tensor of ``a`` on ``device``."""
-    return k_ops._col(a).to(device)
+    """Flat float64 tensor of ``a`` on ``device`` (raises when the device
+    is CUDA and there is no card)."""
+    return k_ops._col(a).to(config.get_device(device))
 
 
 def _interval_prior(lb, ub):
@@ -75,12 +77,12 @@ class GPCSD1DSpatialCovSE:
             }
         }
 
-    def compute_Ks(self, device="cpu"):
+    def compute_Ks(self, device=config.DEFAULT_DEVICE):
         """CSD-space spatial correlation at the electrode sites (nx, nx)."""
         x = _on(self.x, device)
         return k_ops.se(x, x, self.params["ell"]["value"])
 
-    def compKphig_1d(self, z, R, device="cpu"):
+    def compKphig_1d(self, z, R, device=config.DEFAULT_DEVICE):
         """LFP-CSD spatial cross covariance (nx, nz)."""
         return sp_ops.kphig_1d(
             _on(self.x, device), _on(z, device), _on(self.gl_x, device),
@@ -88,7 +90,7 @@ class GPCSD1DSpatialCovSE:
             self.params["ell"]["value"], R,
         )
 
-    def compKphi_1d(self, R, xp=None, device="cpu"):
+    def compKphi_1d(self, R, xp=None, device=config.DEFAULT_DEVICE):
         """LFP-LFP spatial covariance (nx, nxp)."""
         return sp_ops.kphi_1d(
             _on(self.x, device), _on(self.gl_x, device), _on(self.gl_w, device),
@@ -124,7 +126,7 @@ class GPCSDTemporalCov:
             },
         }
 
-    def compute_Kt(self, t=None, tprime=None, device="cpu"):
+    def compute_Kt(self, t=None, tprime=None, device=config.DEFAULT_DEVICE):
         t = _on(self.t if t is None else t, device)
         tprime = _on(self.t if tprime is None else tprime, device)
         return k_ops.TEMPORAL_KERNELS[self.kind](

@@ -1,11 +1,13 @@
 """GPCSD1D: 1D Gaussian-process current source density model.
 
 Counterpart of ``gpcsd_tpu.models.gpcsd1d`` (constructor, parameter
-round-trip, ``loglik`` and the scipy MAP ``fit``), with the reference's API
-(``gpcsd1d.py``: constructor defaults ``:21-62``, ``loglik`` ``:113-128``,
-``fit`` ``:130-246``, param round-trip ``:84-102``).  The numerics are the
+round-trip, ``loglik``, the scipy MAP ``fit``, ``predict``, ``sample_prior``
+and, through :class:`InferenceAPIMixin`, ``sample_posterior``), with the
+reference's API (``gpcsd1d.py``: constructor defaults ``:21-62``, ``loglik``
+``:113-128``, ``fit`` ``:130-246``, param round-trip ``:84-102``, ``predict``
+``:248-293``, ``sample_prior`` ``:295-309``).  The numerics are the
 functional core in :mod:`gpcsd_tpu_torch.models.core`, on the model's
-``device``.
+``device``: the card unless the caller asks for the CPU.
 
 Data layout: the constructor takes the reference's ``(nx, nt, ntrials)`` LFP
 array; :meth:`GPCSD1D._Y` gives the ``(ntrials, nx, nt)`` trial tensor.
@@ -18,8 +20,9 @@ import torch
 
 from .. import config
 from ..infer.map import map_fit, sample_restarts
+from ..ops.kernels import se
 from ..ops.spatial import kphi_1d
-from .core import ModelFns, make_model_fns
+from .core import ModelFns, make_model_fns, posterior_predict
 from .covariances import (
     GPCSD1DSpatialCovSE,
     GPCSDTemporalCovMatern,
@@ -27,13 +30,14 @@ from .covariances import (
     _interval_prior,
     _prior_draw,
 )
+from .inference_api import InferenceAPIMixin
 from .params import ParamSet, ParamSpec
 from .priors import HalfNormal
 
 JITTER = config.JITTER_1D
 
 
-class GPCSD1D:
+class GPCSD1D(InferenceAPIMixin):
     def __init__(
         self,
         lfp,
@@ -47,7 +51,7 @@ class GPCSD1D:
         R_prior=None,
         sig2n_prior=None,
         het_noise="approx",
-        device="cpu",
+        device=config.DEFAULT_DEVICE,
         gen=None,
     ):
         """
@@ -67,8 +71,8 @@ class GPCSD1D:
             (``utility_functions.py:54-63``), "exact" uses the
             noise-whitened exact factorization at the same cost.  Ignored
             for scalar noise (both are exact there).
-        :param device: where the likelihood runs; "cuda" raises when there
-            is no card.
+        :param device: where the model runs: the card unless the caller
+            asks for ``"cpu"``; raises when CUDA is asked for and absent.
         :param gen: ``numpy.random.Generator`` for the initial prior draws
             of every default parameter (``default_rng(0)`` when None).
         """
@@ -149,6 +153,21 @@ class GPCSD1D:
         for i, tc in enumerate(self.temporal_cov_list):
             tc.params["ell"]["value"] = params["temporal_ell_list"][i]
             tc.params["sigma2"]["value"] = params["temporal_sigma2_list"][i]
+
+    def update_lfp(self, new_lfp, t, x=None):
+        """Replace the data (and its time points, and optionally the
+        electrode positions), keeping the parameter values."""
+        if x is not None:
+            self.x = np.asarray(x, dtype=np.float64).reshape(-1, 1)
+            self.spatial_cov.x = self.x
+        self.t = np.asarray(t, dtype=np.float64).reshape(-1, 1)
+        for tc in self.temporal_cov_list:
+            tc.t = self.t
+        lfp = np.asarray(new_lfp, dtype=np.float64)
+        if lfp.ndim == 2:
+            lfp = lfp[:, :, None]
+        self.lfp = lfp
+        self._fns_cache = {}
 
     # ------------------------------------------------------- functional core
 
@@ -290,3 +309,54 @@ class GPCSD1D:
         self._set_theta(theta)
         self.fit_result = res
         return res
+
+    def predict(self, z, t, type="csd"):
+        """Posterior mean CSD/LFP at locations z and times t.
+
+        Sets ``csd_pred``/``csd_pred_list`` (and/or ``lfp_pred``,
+        ``lfp_pred_list``), ``t_pred`` and ``x_pred`` as numpy arrays in the
+        reference's (nz, ntstar, ntrials) layout and returns the total
+        (the CSD for ``type="both"``).  ``type="lfp"`` predicts the LFP at
+        ``z``, not at the data electrodes.
+        """
+        if type not in ("csd", "lfp", "both"):
+            raise ValueError(f"type must be 'csd', 'lfp' or 'both', got {type!r}")
+        z = np.asarray(z, dtype=np.float64).reshape(-1, 1)
+        tstar = np.asarray(t, dtype=np.float64).reshape(-1, 1)
+        theta = self._theta()
+        sc = self.spatial_cov
+        kphig = kphi = None
+        with torch.no_grad():
+            if type in ("both", "csd"):
+                kphig = sc.compKphig_1d(z, theta["R"], device=self.device)
+            if type in ("both", "lfp"):
+                kphi = sc.compKphi_1d(theta["R"], xp=z, device=self.device)
+            out = posterior_predict(
+                self._fns(), theta, self._Y(), kphig=kphig, kphi=kphi,
+                t_data=self._tensor(self.t.reshape(-1)),
+                t_star=self._tensor(tstar.reshape(-1)),
+            )
+        for name in out:
+            total, comps = out[name]
+            setattr(self, f"{name}_pred", np.moveaxis(total.cpu().numpy(), 0, 2))
+            setattr(self, f"{name}_pred_list",
+                    [np.moveaxis(c.cpu().numpy(), 0, 2) for c in comps])
+        self.t_pred = tstar
+        self.x_pred = z
+        return self.csd_pred if type in ("both", "csd") else self.lfp_pred
+
+    def sample_prior(self, ntrials, seed=0):
+        """Draw CSD prior samples, (nx, nt, ntrials) (``gpcsd1d.py:295-309``),
+        from ``numpy.random.default_rng(seed)``."""
+        with torch.no_grad():
+            theta = self._theta()
+            x = self._tensor(self.x.reshape(-1))
+            Ks_csd = se(x, x, theta["ell"])
+            Kt = self._fns().build_kt(theta)
+            nx, nt = Ks_csd.shape[0], Kt.shape[0]
+            eye = torch.eye(nx, dtype=config.DTYPE, device=self.device)
+            Ls = torch.linalg.cholesky(Ks_csd + JITTER * eye)
+            Lt = torch.linalg.cholesky(Kt)
+            z = self._tensor(np.random.default_rng(seed).standard_normal((ntrials, nx, nt)))
+            csd = Ls @ z @ Lt.mT
+        return np.moveaxis(csd.cpu().numpy(), 0, 2)

@@ -96,13 +96,15 @@ class ParamSet:
     # -- densities ----------------------------------------------------------
 
     def log_prior(self, theta: Dict[str, torch.Tensor]):
-        """Sum of (unnormalized) prior lpdfs over all components."""
+        """Sum of (unnormalized) prior lpdfs over all components; values
+        with leading batch axes (as ``unpack`` of a ``(C, dim)`` array
+        gives them) return one sum per row."""
         total = 0.0
         for name in self.names:
             s = self.specs[name]
-            v = torch.atleast_1d(theta[name])
+            v = theta[name]
             for i, p in enumerate(s.priors):
-                total = total + p.lpdf(v[..., i] if s.size > 1 else v[..., 0])
+                total = total + p.lpdf(v[..., i] if s.size > 1 else v)
         return total
 
     def log_det_jacobian(self, u: torch.Tensor):

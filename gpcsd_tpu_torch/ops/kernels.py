@@ -6,7 +6,9 @@ and temporal kernels and the Matern-1/2 temporal kernel of the reference
 ``:257-271``, ``GPCSDTemporalCovMatern.compute_Kt`` ``:291-305``).
 
 Coordinates may be numpy arrays (placed on the CPU) or tensors (kept on
-their device); parameters are floats or 0-d tensors.
+their device); parameters are floats or tensors.  A parameter tensor of
+shape ``(C,)`` (one value per chain or stencil point) gives a batch of
+``C`` matrices, ``(C, nx, ny)``.
 """
 
 from __future__ import annotations
@@ -20,21 +22,27 @@ def _col(x):
     return torch.as_tensor(x, dtype=DTYPE).reshape(-1)
 
 
+def _mat(p):
+    """A parameter shaped to broadcast against (nx, ny) matrices: floats
+    and 0-d tensors as they are, ``(C,)`` tensors as ``(C, 1, 1)``."""
+    return p[..., None, None] if isinstance(p, torch.Tensor) and p.ndim else p
+
+
 def se(x, y, ell):
     """Squared-exponential correlation exp(-0.5 (x-y)^2 / ell^2); (nx, ny)."""
     d = _col(x)[:, None] - _col(y)[None, :]
-    return torch.exp(-0.5 * torch.square(d / ell))
+    return torch.exp(-0.5 * torch.square(d / _mat(ell)))
 
 
 def temporal_se(t, tprime, ell, sigma2):
     """SE temporal covariance sigma2 * exp(-0.5 dt^2/ell^2); (nt, ntp)."""
-    return sigma2 * se(t, tprime, ell)
+    return _mat(sigma2) * se(t, tprime, ell)
 
 
 def temporal_matern12(t, tprime, ell, sigma2):
     """Matern-1/2 (exponential) covariance sigma2 * exp(-|dt|/ell)."""
     d = _col(t)[:, None] - _col(tprime)[None, :]
-    return sigma2 * torch.exp(-torch.abs(d) / ell)
+    return _mat(sigma2) * torch.exp(-torch.abs(d) / _mat(ell))
 
 
 #: registry used by the model layer to assemble temporal covariance stacks

@@ -37,11 +37,24 @@ class EighSafe(torch.autograd.Function):
 
     It behaves like 1/gap for separated eigenvalues and goes to 0 inside
     degenerate clusters, where the likelihood is rotation-invariant.
+
+    Leading axes are a batch (one ``torch.linalg.eigh`` call).  In a batch,
+    a matrix with a non-finite entry gives NaN eigenvalues, as
+    ``jnp.linalg.eigh`` does, where ``torch.linalg.eigh`` would raise for
+    the whole batch: a sampler's divergent trajectory reaches such points
+    and must see a non-finite density in that row only.  A single matrix
+    goes to ``torch.linalg.eigh`` as it is.
     """
 
     @staticmethod
     def forward(ctx, a):
-        w, v = torch.linalg.eigh(a)
+        if a.ndim == 2:
+            w, v = torch.linalg.eigh(a)
+        else:
+            finite = torch.isfinite(a).all(dim=-1).all(dim=-1)
+            eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+            w, v = torch.linalg.eigh(torch.where(finite[..., None, None], a, eye))
+            w = torch.where(finite[..., None], w, torch.nan)
         ctx.save_for_backward(w, v)
         return w, v
 
@@ -79,6 +92,9 @@ class KronFactors(NamedTuple):
     exact heteroscedastic path ``qs = S^{-1} Q~`` is the noise-whitened
     spatial basis (not orthogonal) and ``logdet_offset`` carries
     ``nt * sum(log sig2n)``.
+
+    Every field may carry one leading batch axis ``C`` (a factorization
+    per chain or stencil point).
     """
 
     qs: torch.Tensor  # (nx, nx)
@@ -101,28 +117,34 @@ def _spatial_factors(Ks, sig2n, nt, het_exact):
 
     so eigendecomposing the whitened Gram gives the exact diagonalization
     at the same cost.  For scalar sig2n both paths are the same.
+
+    ``Ks`` may be a batch ``(C, nx, nx)``; ``sig2n`` is then ``(C,)`` or
+    ``(C, nx)``, and is per-channel when it has one axis more than the
+    batch.  ``noise`` comes back shaped to broadcast against ``(nx, nt)``.
     """
-    het = het_exact and sig2n.ndim > 0
+    per_channel = sig2n.ndim > Ks.ndim - 2
+    het = het_exact and per_channel
     eigh_in = Ks
     if het:
         s = torch.sqrt(sig2n)
-        eigh_in = Ks / (s[:, None] * s[None, :])
+        eigh_in = Ks / (s[..., :, None] * s[..., None, :])
     lam_s, qs = eigh_safe(eigh_in)
     # PSD + jitter: numerically negative eigenvalues (quadrature-Gram
     # roundoff) would push D below the noise floor and NaN the logdet
     lam_s = torch.clamp(lam_s, min=0.0)
     if het:
-        qs = qs / s[:, None]
+        qs = qs / s[..., :, None]
         noise = torch.ones((), dtype=Ks.dtype, device=Ks.device)
-        logdet_offset = nt * torch.sum(torch.log(sig2n))
+        logdet_offset = nt * torch.sum(torch.log(sig2n), dim=-1)
     else:
-        noise = sig2n[..., None] if sig2n.ndim else sig2n
-        logdet_offset = torch.zeros((), dtype=Ks.dtype, device=Ks.device)
+        noise = sig2n[..., None] if per_channel else sig2n[..., None, None]
+        logdet_offset = torch.zeros(Ks.shape[:-2], dtype=Ks.dtype, device=Ks.device)
     return qs, lam_s, noise, logdet_offset
 
 
 def comp_eig_d(Ks, Kt, sig2n, het_exact: bool = False) -> KronFactors:
     """Joint factorization; ``sig2n`` is a scalar or per-channel (nx,) tensor.
+    ``Ks``, ``Kt`` and ``sig2n`` may all carry one leading batch axis.
 
     Matches reference ``comp_eig_D`` with D laid out (nx, nt): its flat
     ``Dvec = repeat(lam_s, nt) * tile(lam_t, nx) + sig2n`` is row-major
@@ -136,9 +158,9 @@ def comp_eig_d(Ks, Kt, sig2n, het_exact: bool = False) -> KronFactors:
     lam_t, qt = eigh_safe(Kt)
     lam_t = torch.clamp(lam_t, min=0.0)
     qs, lam_s, noise, logdet_offset = _spatial_factors(
-        Ks, sig2n, lam_t.shape[0], het_exact
+        Ks, sig2n, lam_t.shape[-1], het_exact
     )
-    d = lam_s[:, None] * lam_t[None, :] + noise
+    d = lam_s[..., :, None] * lam_t[..., None, :] + noise
     return KronFactors(
         qs=qs, qt=qt, lam_s=lam_s, lam_t=lam_t, d=d, logdet_offset=logdet_offset
     )
@@ -155,18 +177,22 @@ def loglik(factors: KronFactors, Y):
     Drops the -0.5*n*log(2*pi) constant, matching reference ``loglik``
     (``gpcsd1d.py:113-128``).  The quadratic term goes through
     :func:`quadform`: the CUDA kernel on the card, its plain version on
-    the CPU.
+    the CPU.  Batched factors ``(C, ...)`` give ``(C,)`` values of the
+    same trials, with one :func:`quadform` call (one kernel launch) per
+    row: the kernel takes one ``(qs, qt, dinv)``.
     """
     nx, nt = Y.shape[-2:]
-    Yb = Y.reshape(-1, nx, nt)
+    Yb = Y.reshape(-1, nx, nt).contiguous()
     ntrials = Yb.shape[0]
-    quad = quadform(
-        factors.qs.contiguous(),
-        factors.qt.contiguous(),
-        (1.0 / factors.d).contiguous(),
-        Yb.contiguous(),
-    )
-    logdet = ntrials * (torch.sum(torch.log(factors.d)) + factors.logdet_offset)
+    dinv = 1.0 / factors.d
+    if dinv.ndim == 2:
+        quad = quadform(factors.qs.contiguous(), factors.qt.contiguous(), dinv.contiguous(), Yb)
+    else:
+        quad = torch.stack([
+            quadform(qs.contiguous(), qt.contiguous(), di.contiguous(), Yb)
+            for qs, qt, di in zip(factors.qs, factors.qt, dinv)
+        ])
+    logdet = ntrials * (torch.sum(torch.log(factors.d), dim=(-2, -1)) + factors.logdet_offset)
     return -0.5 * (logdet + quad)
 
 
@@ -185,3 +211,15 @@ def mykron(A, B):
     a1, a2 = A.shape
     b1, b2 = B.shape
     return torch.reshape(A[:, None, :, None] * B[None, :, None, :], (a1 * b1, a2 * b2))
+
+
+def kron_cross_mean(Kxz, Ktt, V):
+    """Posterior mean contraction ``(Kxz (x) Ktt)^T vec(V)`` per trial, as
+    two float64 matmuls.
+
+    :param Kxz: (nx, nz) spatial cross-covariance (data side first)
+    :param Ktt: (nt, ntstar) temporal cross-covariance (data side first)
+    :param V: (..., nx, nt) solve output from :func:`kron_solve`
+    :return: (..., nz, ntstar)
+    """
+    return Kxz.mT @ V @ Ktt

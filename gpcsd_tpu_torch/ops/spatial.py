@@ -11,20 +11,21 @@ rule.  With ``A = gl_w * b(x - gl_x, R)``,
 from __future__ import annotations
 
 from .forward import b_fwd_1d
-from .kernels import _col, se
+from .kernels import _col, _mat, se
 
 
 def quad_weights_1d(x, gl_x, gl_w, R):
-    """A(x) = gl_w * b(x - gl_x, R); shape (nx, ngl)."""
+    """A(x) = gl_w * b(x - gl_x, R); shape (nx, ngl), or (C, nx, ngl) for
+    a ``(C,)`` tensor R."""
     delta = _col(x)[:, None] - _col(gl_x)[None, :]
-    return _col(gl_w)[None, :] * b_fwd_1d(delta, R)
+    return _col(gl_w)[None, :] * b_fwd_1d(delta, _mat(R))
 
 
 def kphi_1d(x, gl_x, gl_w, ell, R, xp=None):
     """LFP-LFP spatial covariance (nx, nxp); forward model on both sides."""
     A = quad_weights_1d(x, gl_x, gl_w, R)
     Ap = A if xp is None else quad_weights_1d(xp, gl_x, gl_w, R)
-    return A @ se(gl_x, gl_x, ell) @ Ap.T
+    return A @ se(gl_x, gl_x, ell) @ Ap.mT
 
 
 def kphig_1d(x, z, gl_x, gl_w, ell, R):

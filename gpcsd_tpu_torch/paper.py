@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import config
 from .models.covariances import (
     GPCSD1DSpatialCovSE,
     GPCSDTemporalCovMatern,
@@ -27,7 +28,7 @@ NX = 24
 QUAD_A, QUAD_B = -200.0, 2600.0  # quadrature domain, um
 
 
-def paper_surrogate(seed, ntime, ntrials, device="cpu"):
+def paper_surrogate(seed, ntime, ntrials, device=config.DEFAULT_DEVICE):
     """Exact draw from the GPCSD1D marginal LFP law at the labeled truth.
 
     The covariance is ``Ks (x) Kt + sig2n I`` with Ks the model's own
@@ -75,7 +76,7 @@ def paper_surrogate(seed, ntime, ntrials, device="cpu"):
     return lfp, time_ms, truth
 
 
-def build_model(lfp, time_ms, het_noise="approx", device="cpu"):
+def build_model(lfp, time_ms, het_noise="approx", device=config.DEFAULT_DEVICE):
     """The paper model on the baseline window (t < 0) of ``lfp``: the
     covariance stack and priors of ``scripts/paper_nuts_run.build_model``
     (reference ``auditory_lfp/fit_gpcsd_baseline.py:80-100``)."""

@@ -1,5 +1,6 @@
-"""PyTorch port on the card: the quadform CUDA kernel and the log-joint on
-CUDA, against their plain versions and the CPU.
+"""PyTorch port on the card: the quadform CUDA kernel, the log-joint (single
+and batched), ``predict`` and ``sample_posterior`` on CUDA, against their
+plain versions and the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them.  The
 card has no JAX and ``tests/conftest.py`` imports it, so run this file
@@ -102,3 +103,79 @@ def test_log_prob_cuda_matches_cpu():
     assert qf.launch_count == before + 1
     assert np.isclose(out[0][0], out[1][0], rtol=1e-10)
     assert np.linalg.norm(out[0][1] - out[1][1]) <= 1e-8 * np.linalg.norm(out[1][1])
+
+
+def small_models():
+    """The same small per-channel-noise model on the card and on the CPU."""
+    rng = np.random.default_rng(2)
+    x = (np.arange(10) * 100.0).reshape(-1, 1)
+    t = np.arange(40.0).reshape(-1, 1)
+    lfp = rng.normal(size=(10, 40, 6))
+    kw = dict(ngl=40, sig2n_prior=[HalfNormal(0.1) for _ in range(10)], het_noise="exact")
+    models = [GPCSD1D(lfp, x, t, **kw), GPCSD1D(lfp, x, t, device="cpu", **kw)]
+    for m in models:
+        m.R["value"] = 120.0
+        m.spatial_cov.params["ell"]["value"] = 180.0
+        m.temporal_cov_list[0].params["ell"]["value"] = 5.0
+        m.temporal_cov_list[1].params["ell"]["value"] = 2.0
+    return models
+
+
+def test_default_device_is_the_card():
+    m_gpu, _ = small_models()
+    assert m_gpu.device.type == "cuda" and m_gpu._Y().is_cuda
+    from gpcsd_tpu_torch.infer import dense_metric, hmc, nuts
+    assert hmc.welford_init(3).mean.is_cuda
+    assert dense_metric.dense_welford_init(3).m2.is_cuda
+    assert nuts.draw_noise(nuts.chain_generators(0, 1), 3, 2).xi.is_cuda
+
+
+def test_batched_log_prob_matches_unbatched_on_cuda():
+    """Rows of a (C, dim) batch against C single calls on the card: value
+    rtol 1e-12, gradient 1e-10 in norm (batched cuSOLVER and cuBLAS calls
+    may sum in another order), one kernel launch per row."""
+    from gpcsd_tpu_torch.models.core import value_and_grad_rows
+
+    m, _ = small_models()
+    fns, Y = m._fns(), m._Y()
+    u0 = fns.param_set.pack(m._theta())
+    us = u0[None] + 0.05 * torch.tensor(np.random.default_rng(0).normal(size=(4, u0.numel())),
+                                         device="cuda")
+    before = qf.launch_count
+    vals, grads = value_and_grad_rows(lambda u: fns.log_prob(u, Y), us)
+    assert qf.launch_count == before + 4
+    for u, v, g in zip(us, vals, grads):
+        ui = u.clone().requires_grad_()
+        f = fns.log_prob(ui, Y)
+        (gi,) = torch.autograd.grad(f, ui)
+        assert np.isclose(float(v), float(f.detach()), rtol=1e-12, atol=0.0)
+        assert float((g - gi).norm()) <= 1e-10 * float(gi.norm())
+
+
+def test_predict_cuda_matches_cpu():
+    """CSD and LFP predictions, totals and components, card vs CPU: 1e-9
+    in the max norm (two eigensolvers behind the same factored solve)."""
+    m_gpu, m_cpu = small_models()
+    z, ts = np.linspace(0.0, 900.0, 19), np.arange(0.0, 40.0, 3.0)
+    for m in (m_gpu, m_cpu):
+        m.predict(z, ts, type="both")
+    for name in ("csd_pred", "lfp_pred"):
+        got, want = getattr(m_gpu, name), getattr(m_cpu, name)
+        assert got.shape == (19, ts.size, 6)
+        assert np.max(np.abs(got - want)) <= 1e-9 * np.max(np.abs(want))
+        for a, b in zip(getattr(m_gpu, name + "_list"), getattr(m_cpu, name + "_list")):
+            assert np.max(np.abs(a - b)) <= 1e-9 * np.max(np.abs(want))
+
+
+def test_sample_posterior_launches_the_kernel():
+    """4 x (20 + 20) transitions on the card: finite draws, and at least
+    one quadform launch per leapfrog step the sampler counted."""
+    m, _ = small_models()
+    before = qf.launch_count
+    post = m.sample_posterior(n_chains=4, num_warmup=20, num_samples=20, seed=0, max_depth=5,
+                              dense_mass=True)
+    launches = qf.launch_count - before
+    assert launches > 0 and launches >= int(post.diagnostics["num_steps"].sum())
+    assert post.raw.samples.is_cuda and post.raw.samples.shape == (4, 20, 16)
+    assert all(np.isfinite(v).all() for v in post.theta.values())
+    assert (post.diagnostics["step_size"] > 1e-3).all()

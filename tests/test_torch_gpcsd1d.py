@@ -47,7 +47,7 @@ def port_of(jm, **kw):
         sig2n_prior = gt.HalfNormal(sig2n_prior.sd)
     return convert.model_from_reference_params(
         jm.lfp, jm.x, jm.t, np_theta(jm), a=jm.a, b=jm.b, ngl=jm.ngl,
-        sig2n_prior=sig2n_prior, het_noise=jm.het_noise, **kw,
+        sig2n_prior=sig2n_prior, het_noise=jm.het_noise, **{"device": "cpu", **kw},
     )
 
 
@@ -62,7 +62,10 @@ class TestPackage:
     def test_imports_no_jax(self):
         """The card has no JAX: importing the port must not load it."""
         code = (
-            "import sys, gpcsd_tpu_torch, gpcsd_tpu_torch.paper, gpcsd_tpu_torch.convert; "
+            "import sys, gpcsd_tpu_torch, gpcsd_tpu_torch.paper, gpcsd_tpu_torch.convert, "
+            "gpcsd_tpu_torch.infer.hmc, gpcsd_tpu_torch.infer.dense_metric, "
+            "gpcsd_tpu_torch.infer.nuts, gpcsd_tpu_torch.infer.diagnostics, "
+            "gpcsd_tpu_torch.models.inference_api; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gpcsd_tpu')))"
         )
         out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -83,6 +86,35 @@ class TestPackage:
                 config.get_device("cuda")
             with pytest.raises(RuntimeError, match="CUDA"):
                 gt.GPCSD1D(np.zeros((3, 4, 1)), np.arange(3.0), np.arange(4.0), device="cuda")
+
+    def test_default_device_is_the_card(self):
+        """Every entry point runs on the card unless asked for the CPU: with
+        no ``device`` and no card it raises, and does not run on the CPU."""
+        assert config.DEFAULT_DEVICE == "cuda"
+        if torch.cuda.is_available():
+            pytest.skip("checks the failure on a machine without CUDA")
+        x, t = np.arange(3.0) * 100.0, np.arange(4.0)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            gt.GPCSD1D(np.zeros((3, 4, 1)), x, t)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            paper.paper_surrogate(0, 8, 2)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            paper.build_model(np.zeros((24, 8, 2)), np.arange(8.0) - 4.0)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            convert.theta_from_numpy({"R": 1.0})
+        with pytest.raises(RuntimeError, match="CUDA"):
+            convert.nuts_result_from_numpy({"samples": np.zeros((1, 2, 3)), "logp": np.zeros((1, 2))})
+        scov = gt.GPCSD1DSpatialCovSE(x)
+        tcov = gt.GPCSDTemporalCovSE(t)
+        for call in (scov.compute_Ks, lambda: scov.compKphi_1d(100.0),
+                     lambda: scov.compKphig_1d(x, 100.0), tcov.compute_Kt):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call()
+        from gpcsd_tpu_torch.infer import dense_metric, hmc, nuts
+        for call in (lambda: hmc.welford_init(3), lambda: dense_metric.dense_welford_init(3),
+                     lambda: nuts.draw_noise(nuts.chain_generators(0, 1), 3, 2)):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call()
 
 
 def small_jax_model(seed=0, nx=8, nt=15, ntrials=3, het=False, het_noise="approx"):
@@ -139,8 +171,8 @@ class TestParamsAndConvert:
 
     def test_theta_schemas_agree(self):
         jm = small_jax_model(het=True)
-        a = convert.theta_from_numpy(np_theta(jm))
-        b = convert.theta_from_numpy(jm.extract_model_params())
+        a = convert.theta_from_numpy(np_theta(jm), device="cpu")
+        b = convert.theta_from_numpy(jm.extract_model_params(), device="cpu")
         assert a.keys() == b.keys()
         for k in a:
             np.testing.assert_array_equal(a[k].numpy(), b[k].numpy())
@@ -163,7 +195,7 @@ def golden_models(het):
     tma.params["ell"]["value"], tma.params["sigma2"]["value"] = 2.5, 0.6
     kw = {"sig2n_prior": [gt.HalfNormal(0.1) for _ in range(8)]} if het else {}
     m = gt.GPCSD1D(GOLD["m1_Y"], xs, ts, a=-200.0, b=900.0, ngl=24,
-                   spatial_cov=scov, temporal_cov_list=[tse, tma], **kw)
+                   spatial_cov=scov, temporal_cov_list=[tse, tma], device="cpu", **kw)
     m.R["value"] = 150.0
     m.sig2n["value"] = GOLD["ceD_sig2n_vec"] if het else 0.05
     return m
@@ -223,8 +255,8 @@ def test_log_joint_matches_jax_at_bench_point(fn):
 
 @pytest.fixture(scope="module")
 def paper_case():
-    lfp, time_ms, _ = paper.paper_surrogate(0, 1200, 100)
-    model = paper.build_model(lfp, time_ms, het_noise="exact")
+    lfp, time_ms, _ = paper.paper_surrogate(0, 1200, 100, device="cpu")
+    model = paper.build_model(lfp, time_ms, het_noise="exact", device="cpu")
     draws = np.load(os.path.join(HETX, "posterior_samples.npz"))["raw_u"].reshape(-1, 30)[:8]
     logp64 = np.load(os.path.join(HETX, "logp64_draws.npy"))[:8]
     return model, draws, logp64

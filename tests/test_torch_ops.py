@@ -146,11 +146,11 @@ class TestGoldens:
         scov.params["ell"]["value"] = 200.0
         close(scov.gl_x, GOLD["spat1d_gl_x"], 1e-8, 1e-12)
         close(scov.gl_w, GOLD["spat1d_gl_w"], 1e-8, 1e-12)
-        close(scov.compute_Ks(), GOLD["spat1d_Ks"], 1e-8, 1e-12)
-        close(scov.compKphi_1d(150.0), GOLD["spat1d_Kphi"], 1e-8, 1e-12)
+        close(scov.compute_Ks(device="cpu"), GOLD["spat1d_Ks"], 1e-8, 1e-12)
+        close(scov.compKphi_1d(150.0, device="cpu"), GOLD["spat1d_Kphi"], 1e-8, 1e-12)
         zq = np.linspace(50.0, 650.0, 5)[:, None]
-        close(scov.compKphi_1d(150.0, xp=zq), GOLD["spat1d_Kphi_xp"], 1e-8, 1e-12)
-        close(scov.compKphig_1d(zq, 150.0), GOLD["spat1d_Kphig"], 1e-8, 1e-12)
+        close(scov.compKphi_1d(150.0, xp=zq, device="cpu"), GOLD["spat1d_Kphi_xp"], 1e-8, 1e-12)
+        close(scov.compKphig_1d(zq, 150.0, device="cpu"), GOLD["spat1d_Kphig"], 1e-8, 1e-12)
         assert np.isclose(scov.params["ell"]["min"], SCAL["spat1d_ell_min"])
         assert np.isclose(scov.params["ell"]["max"], SCAL["spat1d_ell_max"])
         assert np.isclose(scov.params["ell"]["prior"].alpha, SCAL["spat1d_ell_prior_alpha"])
@@ -161,10 +161,10 @@ class TestGoldens:
         tse, tma = GPCSDTemporalCovSE(ts), GPCSDTemporalCovMatern(ts)
         tse.params["ell"]["value"], tse.params["sigma2"]["value"] = 7.0, 1.1
         tma.params["ell"]["value"], tma.params["sigma2"]["value"] = 2.5, 0.6
-        close(tse.compute_Kt(), GOLD["tempSE_Kt"], 1e-8, 1e-12)
-        close(tse.compute_Kt(tstar), GOLD["tempSE_Kt_star"], 1e-8, 1e-12)
-        close(tma.compute_Kt(), GOLD["tempMa_Kt"], 1e-8, 1e-12)
-        close(tma.compute_Kt(tstar), GOLD["tempMa_Kt_star"], 1e-8, 1e-12)
+        close(tse.compute_Kt(device="cpu"), GOLD["tempSE_Kt"], 1e-8, 1e-12)
+        close(tse.compute_Kt(tstar, device="cpu"), GOLD["tempSE_Kt_star"], 1e-8, 1e-12)
+        close(tma.compute_Kt(device="cpu"), GOLD["tempMa_Kt"], 1e-8, 1e-12)
+        close(tma.compute_Kt(tstar, device="cpu"), GOLD["tempMa_Kt_star"], 1e-8, 1e-12)
         assert np.isclose(tse.params["ell"]["min"], SCAL["tempSE_ell_min"])
         assert np.isclose(tse.params["ell"]["max"], SCAL["tempSE_ell_max"])
         assert np.isclose(tse.params["ell"]["prior"].alpha, SCAL["tempSE_ell_prior_alpha"])
