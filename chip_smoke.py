@@ -3,12 +3,18 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (covariances -> two float64 eighs -> Kronecker
-log-joint value and gradient through the hand-written quadform kernel ->
-scipy L-BFGS-B MAP steps -> Laplace Hessian -> whitened dense-metric NUTS
-with 4 chains -> R-hat/ESS -> predict) at the auditory paper configuration:
-GPCSD1D, nx=24, nt=600, 100 trials, ngl=100, SE + Matern-1/2, 24
-per-channel noise variances, het_noise="exact".  Phases, one JSON line each:
+Drives the port's two main paths.  The 1D path (covariances -> two float64
+eighs -> Kronecker log-joint value and gradient through the hand-written
+quadform kernel -> scipy L-BFGS-B MAP steps -> Laplace Hessian -> whitened
+dense-metric NUTS with 4 chains -> R-hat/ESS -> predict) runs at the
+auditory paper configuration: GPCSD1D, nx=24, nt=600, 100 trials, ngl=100,
+SE + Matern-1/2, 24 per-channel noise variances, het_noise="exact".  The 2D
+path (construct -> loglik -> L-BFGS batched over restarts on the card ->
+predict -> predict_variance -> predict_samples -> sample_prior) runs at the
+Neuropixels shape (``gpcsd_tpu_torch.paper.neuropixels_problem``): GPCSD2D,
+nx=69 on the staggered 4-column geometry, nt=375, 100 trials, a 30 x 120
+quadrature rule (3600 nodes), eps=1, scalar noise, 8 parameters.  Phases,
+one JSON line each:
 
 1. device: torch/CUDA versions and the card's name and power limit;
 2. build: compile ``gpcsd_tpu_torch/csrc/quadform.cu`` for sm_90a; print
@@ -36,11 +42,26 @@ per-channel noise variances, het_noise="exact".  Phases, one JSON line each:
    as in the banked run, whitened by that Hessian, max_depth 7) from that
    centre: health, launch count against the sampler's own leapfrog count,
    moments against the banked posterior, ms per batched leapfrog and the
-   device's busy share under the profiler.
+   device's busy share under the profiler;
+11. log_prob_2d: ``GPCSD2D.loglik()`` and value and gradient of ``log_prob``
+   at the Neuropixels point and 4 jittered points, card vs the port on the
+   CPU, and the batched ``(C, dim)`` call vs the unbatched one on the card;
+12. fit_2d: ``GPCSD2D.fit(n_restarts=4, backend="torch")`` for 8 iterations:
+   every restart finite and no higher than its start, launches against the
+   optimizer's own count of evaluations, host reads, seconds, peak device
+   memory; one scipy restart for its seconds per evaluation;
+13. predict_2d: ``predict``, ``predict_variance`` (CSD and LFP) and
+   ``predict_samples`` (random Fourier features, chosen by itself) at 4
+   mid-line depths, card vs CPU; ``sample_prior``;
+14. timing_2d: value+grad evals/s in 2D, the kernel vs its plain version and
+   its bound at (69, 375, 100), and from ``torch.profiler`` the device time
+   per evaluation and its largest kernels (printed last, measured in part
+   before the 1D posterior phases, the profile after them).
 
 The quadform launch count is set to 0 before each stretch of the main path
-(log_prob + fit, hessian, nuts) and read after it; ``predict`` solves with
-the factors and launches no kernel.  Any failure raises and the script
+(log_prob + fit, hessian, nuts, log_prob_2d, fit_2d) and read after it;
+``predict`` and the other outputs solve with the factors and launch no
+kernel.  Any failure raises and the script
 exits non-zero.  Without CUDA, or run outside a checkout of the repository,
 it fails before printing a result.
 """
@@ -62,8 +83,10 @@ NUTS_WARMUP, NUTS_SAMPLES, NUTS_CHAINS, NUTS_MAX_DEPTH = 40, 30, 4, 7
 #: H100 SXM data-sheet peaks used for the kernel's bound
 PEAK_FP64_TENSOR_FLOPS = 67e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
+#: the shapes the two main paths give the kernel: (nx, nt, ntrials)
+SHAPE_1D, SHAPE_2D = (24, 600, 100), (69, 375, 100)
 KERNEL_SHAPES = [
-    (24, 600, 100), (7, 129, 3), (69, 375, 5),
+    SHAPE_1D, SHAPE_2D, (7, 129, 3), (69, 375, 5),
     (24, 600, 1), (24, 601, 7), (130, 64, 2), (811, 16, 1), (1000, 16, 1), (1, 8, 1),
 ]
 
@@ -142,9 +165,9 @@ def sass_counts(lib, cuobjdump):
 
 def phase_kernel(qf, dev):
     """Kernel vs plain version: value rtol 1e-12, gradients 1e-10 (f64,
-    another summation order).  Returns the max abs value error."""
+    another summation order).  Returns the abs value error by shape."""
     gen = torch.Generator().manual_seed(0)
-    worst = 0.0
+    abs_err = {}
     for shape in KERNEL_SHAPES:
         ins = kernel_inputs(gen, *shape, dev)
         got = float(qf.quadform_cuda(*ins))
@@ -153,7 +176,7 @@ def phase_kernel(qf, dev):
         torch.cuda.synchronize()
         check(rel(got, want) <= 1e-12, f"quadform value {shape}: {got} vs {want}")
         check(again == got, f"quadform {shape}: two calls differ ({got} vs {again})")
-        worst = max(worst, abs(got - want))
+        abs_err[shape] = abs(got - want)
         a = [t.clone().requires_grad_() for t in ins]
         b = [t.clone().requires_grad_() for t in ins]
         ga = torch.autograd.grad(qf.quadform(*a), a[:3])
@@ -162,7 +185,7 @@ def phase_kernel(qf, dev):
         check(gerr <= 1e-10, f"quadform gradient {shape}: rel err {gerr}")
         emit("kernel", shape=list(shape), value=got, plain=want,
              rel_err=rel(got, want), grad_rel_err=gerr)
-    return worst
+    return abs_err
 
 
 def max_rel(a, b):
@@ -377,22 +400,258 @@ def phase_timing(qf, dev, smi):
         factor_ms = cuda_ms(lambda: bfns.build_factors(theta), 20)
         value_ms = cuda_ms(lambda: bfns.loglik(theta, bY), 20)
 
-    ins = kernel_inputs(torch.Generator().manual_seed(1), *KERNEL_SHAPES[0], dev)
+    kt = kernel_times(qf, SHAPE_1D, dev)
+    emit("timing", card=smi, log_joint_value_grad_evals_per_s=evals_per_s,
+         covariances_and_eighs_ms=factor_ms, loglik_value_ms=value_ms, **kt)
+    return kt["quadform_device_ms"], kt["quadform_plain_device_ms"]
+
+
+def kernel_times(qf, shape, dev):
+    """The quadform kernel against its plain version at ``shape``: device
+    milliseconds (CUDA graph of 50 calls) and eager milliseconds, each in
+    turns plain-kernel-kernel-plain so that drift between them cancels."""
+    ins = kernel_inputs(torch.Generator().manual_seed(1), *shape, dev)
     kernel = lambda: qf.quadform_cuda(*ins)  # noqa: E731
     plain = lambda: qf.quadform_reference(*ins)  # noqa: E731
-    # in turns, plain-kernel-kernel-plain, so drift between them cancels
     dev_runs = [graph_ms(f) for f in (plain, kernel, kernel, plain)]
     eager_runs = [cuda_ms(f, 50) for f in (plain, kernel, kernel, plain)]
-    device_ms, plain_device_ms = np.mean(dev_runs[1:3]), np.mean(dev_runs[::3])
-    kernel_ms, plain_ms = np.mean(eager_runs[1:3]), np.mean(eager_runs[::3])
-    emit("timing", card=smi, log_joint_value_grad_evals_per_s=evals_per_s,
-         covariances_and_eighs_ms=factor_ms, loglik_value_ms=value_ms,
-         quadform_device_ms=device_ms, quadform_plain_device_ms=plain_device_ms,
-         quadform_ms=kernel_ms, quadform_plain_ms=plain_ms,
-         quadform_device_ms_runs=dev_runs[1:3], quadform_plain_device_ms_runs=dev_runs[::3],
-         quadform_ms_runs=eager_runs[1:3], quadform_plain_ms_runs=eager_runs[::3],
-         shape=list(KERNEL_SHAPES[0]))
-    return device_ms, plain_device_ms
+    return dict(
+        quadform_device_ms=np.mean(dev_runs[1:3]), quadform_plain_device_ms=np.mean(dev_runs[::3]),
+        quadform_ms=np.mean(eager_runs[1:3]), quadform_plain_ms=np.mean(eager_runs[::3]),
+        quadform_device_ms_runs=dev_runs[1:3], quadform_plain_device_ms_runs=dev_runs[::3],
+        quadform_ms_runs=eager_runs[1:3], quadform_plain_ms_runs=eager_runs[::3],
+        shape=list(shape))
+
+
+# ------------------------------------------------------------- the 2D path
+
+#: card vs CPU at the Neuropixels shape, and batched vs unbatched on the card
+#: (cuSOLVER solves a batch by another algorithm).  The 69 x 69 quadrature
+#: Gram has norm 4e10 (quadrature weights in um^2) and ~40 eigenvalues below
+#: its roundoff 1e-16 * 4e10 = 4e-6; what an eigensolver returns for them,
+#: times Kt's eigenvalues (up to ~150), is up to 6e-4 beside the noise
+#: variance 0.1.  So two float64 eigensolvers disagree by ~1e-5 in the
+#: log-likelihood of this white-noise LFP and by ~1e-2 in its predictions,
+#: whose energy lies in those directions; the variances do not feel it.  H100
+#: readings: value 1.4e-5, gradient 1.6e-4 (temporal part 1.9e-4), batched
+#: value 7.5e-6 and gradient 1.1e-4, predict 8.8e-3, variance 1.3e-8,
+#: samples 4.2e-3.  Each limit leaves a factor of 5-8.
+TOL_2D = {"value": 1e-4, "grad": 1e-3, "grad_temporal": 1e-3, "batched_value": 5e-5,
+          "batched_grad": 1e-3, "predict": 5e-2, "variance": 1e-7, "samples": 3e-2}
+
+
+def u_points_2d(model, n, scale=0.01, seed=1):
+    """The model's point in u-space and ``n - 1`` jittered copies, (n, dim)."""
+    u0 = model._fns().param_set.pack(model._theta()).cpu().numpy()
+    us = u0[None, :] + scale * np.random.default_rng(seed).normal(size=(n, u0.size))
+    us[0] = u0
+    return us
+
+
+def phase_log_prob_2d(qf, gpu, cpu):
+    """loglik and log_prob value and gradient, card vs CPU, and the batched
+    call vs the unbatched one on the card (limits: :data:`TOL_2D`)."""
+    from gpcsd_tpu_torch.infer.map import value_and_grad
+    from gpcsd_tpu_torch.models.core import value_and_grad_rows
+
+    gfns, gY = gpu._fns(), gpu._Y()
+    cfns, cY = cpu._fns(), cpu._Y()
+    qf.launch_count = 0
+    ll_gpu, ll_cpu = gpu.loglik(), cpu.loglik()
+    us = u_points_2d(gpu, 5)
+    worst = {"loglik": rel(ll_gpu, ll_cpu), "value": 0.0, "grad": 0.0, "grad_temporal": 0.0,
+             "batched_value": 0.0, "batched_grad": 0.0}
+    bv, bg = value_and_grad_rows(lambda u: gfns.log_prob(u, gY), torch.tensor(us, device=gpu.device))
+    bv, bg = bv.cpu().numpy(), bg.cpu().numpy()
+    single = []
+    t0 = time.perf_counter()
+    for i, u in enumerate(us):
+        v, g = value_and_grad(lambda ut: gfns.log_prob(ut, gY), u, gpu.device)
+        check(np.isfinite(v) and np.all(np.isfinite(g)), "log_prob_2d: non-finite on the card")
+        worst["batched_value"] = max(worst["batched_value"], rel(bv[i], v))
+        worst["batched_grad"] = max(worst["batched_grad"], rel_norm(bg[i], g))
+        single.append((v, g))
+    gpu_seconds = time.perf_counter() - t0
+    launches = qf.launch_count
+    t0 = time.perf_counter()
+    for (v, g), u in zip(single, us):
+        vc, gc = value_and_grad(lambda ut: cfns.log_prob(ut, cY), u, "cpu")
+        worst["value"] = max(worst["value"], rel(v, vc))
+        worst["grad"] = max(worst["grad"], rel_norm(g, gc))
+        worst["grad_temporal"] = max(worst["grad_temporal"], rel_norm(g[3:7], gc[3:7]))
+    emit("log_prob_2d", loglik=ll_gpu, loglik_cpu=ll_cpu, points=len(us), launches=launches,
+         seconds_per_eval_card=gpu_seconds / len(us),
+         seconds_per_eval_cpu=(time.perf_counter() - t0) / len(us), rel_err=worst)
+    check(launches == 1 + 2 * len(us), f"log_prob_2d: {launches} launches for {1 + 2 * len(us)} rows")
+    check(worst["loglik"] <= TOL_2D["value"], "log_prob_2d: loglik card vs CPU")
+    for key in ("value", "grad", "grad_temporal", "batched_value", "batched_grad"):
+        check(worst[key] <= TOL_2D[key], f"log_prob_2d: {key} {worst[key]} above {TOL_2D[key]}")
+    return launches
+
+
+def phase_fit_2d(qf, paper, dev):
+    """Batched L-BFGS over 4 restarts for 8 iterations on the card, and one
+    scipy restart for its seconds per evaluation."""
+    from gpcsd_tpu_torch.infer.map import sample_restarts
+
+    model = paper.neuropixels_problem(0, device=dev)
+    fns, Y = model._fns(), model._Y()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    qf.launch_count = 0
+    t0 = time.perf_counter()
+    res = model.fit(n_restarts=4, backend="torch", seed=0, options={"maxiter": 8})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = qf.launch_count
+    peak = torch.cuda.max_memory_allocated()
+    u0s = torch.tensor(sample_restarts(fns.param_set, np.random.default_rng(0), 4), device=dev)
+    with torch.no_grad():
+        nll0 = fns.neg_log_joint(u0s, Y).cpu().numpy()
+
+    serial = paper.neuropixels_problem(0, device=dev)
+    before = qf.launch_count
+    t0 = time.perf_counter()
+    sres = serial.fit(n_restarts=1, backend="scipy", seed=0, options={"maxiter": 8})
+    scipy_seconds = time.perf_counter() - t0
+    scipy_evals = qf.launch_count - before
+    emit("fit_2d", seconds=seconds, restarts=4, maxiter=8, launches=launches,
+         evaluations=res.n_evals.tolist(), host_reads=res.n_syncs,
+         seconds_per_evaluation=seconds / launches, nll_start=nll0.tolist(),
+         nll_end=res.nll_values.tolist(), nll_best=res.nll_best, messages=res.messages,
+         peak_memory_bytes=peak, memory_before_bytes=base,
+         scipy={"seconds": scipy_seconds, "evaluations": scipy_evals,
+                "seconds_per_evaluation": scipy_seconds / scipy_evals,
+                "nll_end": sres.nll_values.tolist(), "messages": sres.messages})
+    check(launches == int(res.n_evals.sum()) and launches > 0,
+          f"fit_2d: {launches} quadform launches for {int(res.n_evals.sum())} evaluations")
+    check(np.all(np.isfinite(res.nll_values)), "fit_2d: a restart's NLL is not finite")
+    check(np.all(res.nll_values <= nll0), "fit_2d: a restart ended above its start")
+    check(np.isfinite(sres.nll_best) and sres.nll_best <= nll0[0], "fit_2d: scipy restart")
+    return launches
+
+
+def phase_predict_2d(gpu, cpu):
+    """The 2D outputs at 4 depths down the probe's mid-line, card vs CPU
+    (limits: :data:`TOL_2D`), and the variance inside [0, prior]."""
+    from gpcsd_tpu_torch.ops.spatial import kphi_2d, pairwise_w
+
+    x, t = gpu.x, gpu.t
+    depths = np.linspace(x[:, 1].min() + 50, x[:, 1].max() - 50, 4)
+    z = np.stack([np.full(4, x[:, 0].mean()), depths], axis=1)
+    nt, ntrials = t.shape[0], gpu.lfp.shape[2]
+    errs, secs = {}, {}
+
+    t0 = time.perf_counter()
+    gpu.predict(z, t, type="both")
+    torch.cuda.synchronize()
+    secs["predict"] = time.perf_counter() - t0
+    cpu.predict(z, t, type="both")
+    for name in ("csd_pred", "lfp_pred"):
+        got, want = getattr(gpu, name), getattr(cpu, name)
+        check(got.shape == (4, nt, ntrials) and np.all(np.isfinite(got)), f"predict_2d: {name}")
+        errs[name] = max_rel(got, want)
+        for i, (a, b) in enumerate(zip(getattr(gpu, name + "_list"), getattr(cpu, name + "_list"))):
+            errs[f"{name}_list{i}"] = float(np.max(np.abs(a - b)) / np.max(np.abs(want)))
+    check(max(errs.values()) <= TOL_2D["predict"], f"predict_2d: card vs CPU {errs}")
+
+    sigma2 = sum(tc.params["sigma2"]["value"] for tc in gpu.temporal_cov_list)
+    with torch.no_grad():
+        _, gl_xy, gl_w = gpu.spatial_cov.geometry(gpu.device)
+        th = gpu._theta()
+        kzz = kphi_2d(pairwise_w(gpu._tensor(z), gl_xy), gl_xy, gl_w, th["ell1"], th["ell2"],
+                      th["R"], gpu.eps)
+        prior = {"csd": np.full(4, sigma2), "lfp": sigma2 * torch.diagonal(kzz).cpu().numpy()}
+    var_min_over_prior = {}
+    for kind in ("csd", "lfp"):
+        t0 = time.perf_counter()
+        var = gpu.predict_variance(z, t, type=kind)
+        secs[f"variance_{kind}"] = time.perf_counter() - t0
+        want = cpu.predict_variance(z, t, type=kind)
+        check(var.shape == (4, nt) and np.all(np.isfinite(var)), f"predict_2d: variance {kind}")
+        errs[f"variance_{kind}"] = float(np.max(np.abs(var - want)) / prior[kind].max())
+        var_min_over_prior[kind] = float(np.min(var / prior[kind][:, None]))
+        check(np.all(var >= -1e-9 * prior[kind][:, None]), f"predict_2d: {kind} variance below 0")
+        check(np.all(var <= prior[kind][:, None]), f"predict_2d: {kind} variance above the prior")
+        check(errs[f"variance_{kind}"] <= TOL_2D["variance"], f"predict_2d: variance {kind} {errs}")
+
+    t0 = time.perf_counter()
+    samples = gpu.predict_samples(z, t, n_draws=8, seed=0)  # 3604 union points: RFF
+    secs["samples"] = time.perf_counter() - t0
+    want = cpu.predict_samples(z, t, n_draws=8, seed=0)
+    check(samples.shape == (8, 4, nt) and np.all(np.isfinite(samples)), "predict_2d: samples")
+    errs["samples"] = max_rel(samples, want)
+    check(errs["samples"] <= TOL_2D["samples"], f"predict_2d: samples card vs CPU {errs}")
+
+    t0 = time.perf_counter()
+    csd, lfp = gpu.sample_prior(2, type="both")
+    secs["sample_prior"] = time.perf_counter() - t0
+    check(csd.shape == lfp.shape == (x.shape[0], nt, 2), "predict_2d: sample_prior shapes")
+    check(np.all(np.isfinite(csd)) and np.all(np.isfinite(lfp)), "predict_2d: sample_prior")
+    emit("predict_2d", seconds=secs, sites=z.tolist(), rel_err_vs_cpu=errs,
+         variance_min_over_prior=var_min_over_prior,
+         csd_sd_posterior_over_prior=float(np.sqrt(np.mean(
+             gpu.predict_variance(z, t, type="csd")) / sigma2)),
+         sample_sd=float(samples.std()))
+
+
+def phase_timing_2d(qf, gpu, smi):
+    """Value+grad evals/s in 2D with distinct inputs per evaluation, and the
+    quadform kernel against its plain version and its bound at the shape the
+    2D path gives it."""
+    from gpcsd_tpu_torch.infer.map import value_and_grad
+
+    fns, Y, dev = gpu._fns(), gpu._Y(), gpu.device
+    us = u_points_2d(gpu, 33)
+    for u in us[:3]:
+        value_and_grad(lambda ut: fns.neg_log_joint(ut, Y), u, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for u in us[3:]:
+        value_and_grad(lambda ut: fns.neg_log_joint(ut, Y), u, dev)
+    torch.cuda.synchronize()
+    evals_per_s = (len(us) - 3) / (time.perf_counter() - t0)
+    with torch.no_grad():
+        theta = fns.param_set.unpack(torch.as_tensor(us[0], device=dev))
+        ks_ms = cuda_ms(lambda: fns.build_ks(theta), 20)
+        factor_ms = cuda_ms(lambda: fns.build_factors(theta), 20)
+        value_ms = cuda_ms(lambda: fns.loglik(theta, Y), 20)
+    kt = kernel_times(qf, SHAPE_2D, dev)
+    bound_ms, bound_by = quadform_bound_ms(*SHAPE_2D)
+    return dict(card=smi, log_joint_value_grad_evals_per_s=evals_per_s, spatial_gram_ms=ks_ms,
+                covariances_and_eighs_ms=factor_ms, loglik_value_ms=value_ms,
+                quadform_bound_ms=bound_ms, quadform_bound_by=bound_by, **kt)
+
+
+def profile_2d(gpu, evals=20):
+    """Device time per value+grad evaluation in 2D and its largest kernels,
+    from ``torch.profiler`` over ``evals`` evaluations at distinct points."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpcsd_tpu_torch.infer.map import value_and_grad
+
+    fns, Y, dev = gpu._fns(), gpu._Y(), gpu.device
+    us = u_points_2d(gpu, evals + 2, seed=2)
+    for u in us[:2]:
+        value_and_grad(lambda ut: fns.neg_log_joint(ut, Y), u, dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for u in us[2:]:
+            value_and_grad(lambda ut: fns.neg_log_joint(ut, Y), u, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) * 1e-3
+    check(busy > 0, "the profiler recorded no device time")
+    top = sorted(((e.key, getattr(e, "self_device_time_total", 0.0), e.count)
+                  for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                 key=lambda kv: -kv[1])[:12]
+    return {"profile_evals": evals, "device_ms_per_eval": busy / evals,
+            "profiled_wall_ms_per_eval": 1e3 * wall / evals,
+            "top_kernels_us_per_eval": [[k[:60], v / evals, c / evals] for k, v, c in top]}
 
 
 def main():
@@ -420,7 +679,7 @@ def main():
     check(sass["DMMA"] > 0, "the kernel library holds no FP64 tensor-core (DMMA) instruction")
     check(sass["LDGSTS"] + sass["UTMALDG"] > 0, "the kernel library holds no async copy")
 
-    max_abs_err = phase_kernel(qf, dev)
+    abs_err = phase_kernel(qf, dev)
 
     # ---- the main path: counts from here to the end of the fit
     lfp, time_ms, _ = paper.paper_surrogate(0, 1200, 100, device=dev)
@@ -468,6 +727,15 @@ def main():
     # process's later launches
     device_ms, plain_device_ms = phase_timing(qf, dev, smi)
 
+    # ---- the 2D path at the Neuropixels shape; its profile comes last
+    gpu2d = paper.neuropixels_problem(0, device=dev)
+    cpu2d = paper.neuropixels_problem(0, device="cpu")
+    launches_log_prob_2d = phase_log_prob_2d(qf, gpu2d, cpu2d)
+    launches_fit_2d = phase_fit_2d(qf, paper, dev)
+    phase_predict_2d(gpu2d, cpu2d)
+    timing_2d = phase_timing_2d(qf, gpu2d, smi)
+    del cpu2d
+
     # ---- the posterior path, at the banked posterior's centre (the 2 x 10
     # MAP steps above stop far from the mode, where a Hessian is useless)
     u_center = banked_u.mean(axis=0)
@@ -479,19 +747,27 @@ def main():
     launches_by_phase = {"log_prob": launches_log_prob, "fit": launches_map - launches_log_prob,
                          "hessian": launches_hessian, "nuts": launches_nuts}
 
-    bound_ms, bound_by = quadform_bound_ms(*KERNEL_SHAPES[0])
+    launches_2d = {"log_prob_2d": launches_log_prob_2d, "fit_2d": launches_fit_2d}
+    emit("timing_2d", **timing_2d, **profile_2d(gpu2d))
+
+    bound_ms, bound_by = quadform_bound_ms(*SHAPE_1D)
     print(smi)
-    # library_ms: no single PyTorch call computes the whitened, weighted sum
-    # of squares (the plain version is two matmuls, a multiply and a sum)
-    print(json.dumps({"kernels": [{
-        "name": "quadform", "route": "cuda",
-        "source": "gpcsd_tpu_torch/csrc/quadform.cu",
-        "replaces": "gpcsd_tpu/ops/pallas/quadform.py:32",
-        "launches": sum(launches_by_phase.values()), "launches_by_phase": launches_by_phase,
-        "max_abs_err": max_abs_err,
-        "ms": device_ms, "plain_ms": plain_device_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-    }]}))
+    # one kernel at the two shapes its main paths give it.  library_ms: no
+    # single PyTorch call computes the whitened, weighted sum of squares (the
+    # plain version is two matmuls, a multiply and a sum)
+    common = {"route": "cuda", "source": "gpcsd_tpu_torch/csrc/quadform.cu",
+              "replaces": "gpcsd_tpu/ops/pallas/quadform.py:32", "library_ms": None}
+    print(json.dumps({"kernels": [
+        {"name": "quadform", "shape": list(SHAPE_1D), **common,
+         "launches": sum(launches_by_phase.values()), "launches_by_phase": launches_by_phase,
+         "max_abs_err": abs_err[SHAPE_1D], "ms": device_ms, "plain_ms": plain_device_ms,
+         "bound_ms": bound_ms, "bound_by": bound_by},
+        {"name": "quadform at the 2D shape", "shape": list(SHAPE_2D), **common,
+         "launches": sum(launches_2d.values()), "launches_by_phase": launches_2d,
+         "max_abs_err": abs_err[SHAPE_2D], "ms": timing_2d["quadform_device_ms"],
+         "plain_ms": timing_2d["quadform_plain_device_ms"],
+         "bound_ms": timing_2d["quadform_bound_ms"], "bound_by": timing_2d["quadform_bound_by"]},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

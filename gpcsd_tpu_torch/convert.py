@@ -1,10 +1,11 @@
 """Carry parameter values and sampler state across from the JAX package
 (as numpy).
 
-Both schemas of ``gpcsd_tpu``'s GPCSD1D are accepted: the flat-named theta
-of ``GPCSD1D._theta()`` (``R``, ``ell``, ``tm{i}_ell``, ``tm{i}_sigma2``,
-``sig2n``) and the reference-style dict of ``extract_model_params()``
-(``R``, ``sig2n``, ``spatial_ell``, ``temporal_ell_list``,
+Both schemas of ``gpcsd_tpu``'s models are accepted: the flat-named theta
+of ``_theta()`` (``R``, ``ell`` or ``ell1``/``ell2``, ``tm{i}_ell``,
+``tm{i}_sigma2``, ``sig2n``) and the reference-style dict of
+``extract_model_params()`` (``R``, ``sig2n``, ``spatial_ell`` or
+``spatial_ell1``/``spatial_ell2`` with ``eps``, ``temporal_ell_list``,
 ``temporal_sigma2_list``).  Values may be numpy arrays or floats, so no
 JAX type crosses into this package.  Sampler state crosses the same way:
 :func:`nuts_result_from_numpy` takes the fields of a JAX ``NUTSResult`` or
@@ -22,13 +23,17 @@ from . import config
 from .config import DTYPE
 from .infer.nuts import NUTSResult
 from .models.gpcsd1d import GPCSD1D
+from .models.gpcsd2d import GPCSD2D
 from .models.inference_api import load_hessian
 
 
 def _as_theta_schema(d) -> dict:
     if "temporal_ell_list" not in d:
         return dict(d)
-    theta = {"R": d["R"], "ell": d["spatial_ell"]}
+    theta = {"R": d["R"]}
+    for flat, ref in (("ell", "spatial_ell"), ("ell1", "spatial_ell1"), ("ell2", "spatial_ell2")):
+        if ref in d:
+            theta[flat] = d[ref]
     for i, (ell, s2) in enumerate(zip(d["temporal_ell_list"], d["temporal_sigma2_list"])):
         theta[f"tm{i}_ell"] = ell
         theta[f"tm{i}_sigma2"] = s2
@@ -46,22 +51,41 @@ def theta_from_numpy(d, device=config.DEFAULT_DEVICE) -> dict:
     }
 
 
-def model_from_reference_params(lfp, x, t, params, **kw) -> GPCSD1D:
-    """A :class:`GPCSD1D` on ``(lfp, x, t)`` whose parameter values are
-    ``params`` (either schema); ``kw`` goes to the constructor (priors,
-    covariance objects, ``het_noise``, ``device``)."""
-    m = GPCSD1D(lfp, x, t, **kw)
+def _restore(m, params, spatial):
+    """Write ``params`` (either schema) into model ``m``; ``spatial`` maps
+    the reference-schema names of its spatial lengthscales to flat ones."""
     theta = _as_theta_schema(params)
     n = len(m.temporal_cov_list)
+    out = {ref: float(theta[flat]) for ref, flat in spatial.items()}
+    if hasattr(m, "eps"):
+        out["eps"] = float(params.get("eps", m.eps))
     m.restore_model_params({
+        **out,
         "R": float(theta["R"]),
         "sig2n": np.asarray(theta["sig2n"], dtype=np.float64)
         if np.ndim(theta["sig2n"]) else float(theta["sig2n"]),
-        "spatial_ell": float(theta["ell"]),
         "temporal_ell_list": [float(theta[f"tm{i}_ell"]) for i in range(n)],
         "temporal_sigma2_list": [float(theta[f"tm{i}_sigma2"]) for i in range(n)],
     })
     return m
+
+
+def model_from_reference_params(lfp, x, t, params, **kw) -> GPCSD1D:
+    """A :class:`GPCSD1D` on ``(lfp, x, t)`` whose parameter values are
+    ``params`` (either schema); ``kw`` goes to the constructor (priors,
+    covariance objects, ``het_noise``, ``device``)."""
+    return _restore(GPCSD1D(lfp, x, t, **kw), params, {"spatial_ell": "ell"})
+
+
+def model2d_from_reference_params(lfp, x, t, params, **kw) -> GPCSD2D:
+    """A :class:`GPCSD2D` on ``(lfp, x, t)`` whose parameter values are
+    ``params``: the dict of ``GPCSD2D.extract_model_params()`` (its ``eps``
+    included) or a flat-named theta (``eps`` then comes from ``kw`` or the
+    constructor's default)."""
+    if "eps" in params:
+        kw = {**kw, "eps": float(params["eps"])}
+    return _restore(GPCSD2D(lfp, x, t, **kw), params,
+                    {"spatial_ell1": "ell1", "spatial_ell2": "ell2"})
 
 
 #: names of the sampler's fields in a banked ``posterior_samples.npz``

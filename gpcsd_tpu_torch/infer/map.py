@@ -1,11 +1,20 @@
 """Multi-restart MAP fitting (the reference's only hyperparameter inference).
 
-Counterpart of ``gpcsd_tpu.infer.map`` with ``backend='scipy'``: serial scipy
-``L-BFGS-B`` over the log-transformed parameters, as the reference does
+Counterpart of ``gpcsd_tpu.infer.map``: bounded L-BFGS on the negative
+log-joint over the log-transformed parameters, as the reference does
 (``gpcsd1d.py:130-246``).  Restarts start at prior draws clipped into the
-box (:func:`sample_restarts`); the best finite-NLL restart wins.  The
-objective and its gradient are evaluated with ``torch.autograd`` on the
-device of ``Y``; only float64 numpy vectors cross to scipy.
+box (:func:`sample_restarts`); the best finite-NLL restart wins.
+
+Two execution paths:
+- ``backend='torch'`` (default, the counterpart of the JAX package's
+  ``backend='jax'``): all restarts in one run of the batched optimizer in
+  :mod:`gpcsd_tpu_torch.infer.lbfgs`, state and evaluations on the device of
+  ``Y``.
+- ``backend='scipy'``: serial scipy ``L-BFGS-B``, one run per restart, the
+  reference's own optimizer; only float64 numpy vectors cross to scipy.
+
+The objective and its gradient are evaluated with ``torch.autograd`` on the
+device of ``Y`` in both.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ import scipy.optimize
 import torch
 
 from ..models.params import ParamSet
+from .lbfgs import lbfgs_minimize
 
 
 class MAPResult(NamedTuple):
@@ -25,6 +35,10 @@ class MAPResult(NamedTuple):
     nll_values: np.ndarray  # per-restart NLLs (inf for failed restarts)
     u_all: np.ndarray  # (n_restarts, dim)
     messages: list
+    #: backend 'torch' only: value-and-gradient evaluations per restart and
+    #: the optimizer's host reads of device state
+    n_evals: np.ndarray | None = None
+    n_syncs: int | None = None
 
 
 def sample_restarts(param_set: ParamSet, gen: np.random.Generator, n_restarts: int) -> np.ndarray:
@@ -49,37 +63,59 @@ def map_fit(
     param_set: ParamSet,
     Y,
     u0s,
+    backend: str = "torch",
     maxiter: int = 1000,
     gtol: float = 1e-5,
     ftol: float = 1e7 * np.finfo(float).eps,
     verbose: bool = False,
 ) -> MAPResult:
-    """Fit by multi-restart MAP, one L-BFGS-B run per starting point.
+    """Fit by multi-restart MAP.
 
-    :param neg_log_joint: ``(u, Y) -> scalar`` objective on tensors.
+    :param neg_log_joint: ``(u, Y) -> scalar`` objective on tensors, which
+        for ``backend='torch'`` also maps ``(B, dim)`` to ``(B,)``.
     :param u0s: (n_restarts, dim) starting points in u-space, e.g. from
         :func:`sample_restarts`.
+    :param backend: ``'torch'``: one batched L-BFGS run over all restarts
+        on the device of ``Y``; ``'scipy'``: serial L-BFGS-B.
     """
     lo, hi = param_set.bounds()
+    u0s = np.asarray(u0s, dtype=np.float64)
+    n_evals = n_syncs = None
 
-    def fun(u):
-        return value_and_grad(lambda ut: neg_log_joint(ut, Y), u, Y.device)
-
-    sbounds = [
-        (float(l) if np.isfinite(l) else None, float(h) if np.isfinite(h) else None)
-        for l, h in zip(lo, hi)
-    ]
-    nlls, u_all, messages = [], [], []
-    for u0 in np.asarray(u0s, dtype=np.float64):
-        opt = scipy.optimize.minimize(
-            fun, u0, jac=True, method="L-BFGS-B", bounds=sbounds,
-            options={"maxiter": maxiter, "gtol": gtol, "ftol": ftol},
+    if backend == "torch":
+        res = lbfgs_minimize(
+            lambda u: neg_log_joint(u, Y),
+            torch.tensor(u0s, dtype=torch.float64, device=Y.device),
+            lo=lo, hi=hi, max_iter=maxiter, gtol=gtol, ftol=ftol,
         )
-        nlls.append(opt.fun)
-        u_all.append(opt.x)
-        messages.append(str(opt.message))
-    nlls = np.asarray(nlls)
-    u_all = np.asarray(u_all)
+        nlls = np.where(res.failed.cpu().numpy(), np.inf, res.f.cpu().numpy())
+        u_all = res.u.cpu().numpy()
+        messages = [
+            f"converged={bool(c)} iters={int(n)}"
+            for c, n in zip(res.converged.cpu().numpy(), res.n_iter.cpu().numpy())
+        ]
+        n_evals, n_syncs = res.n_evals, res.n_syncs
+    elif backend == "scipy":
+        def fun(u):
+            return value_and_grad(lambda ut: neg_log_joint(ut, Y), u, Y.device)
+
+        sbounds = [
+            (float(l) if np.isfinite(l) else None, float(h) if np.isfinite(h) else None)
+            for l, h in zip(lo, hi)
+        ]
+        nlls, u_all, messages = [], [], []
+        for u0 in u0s:
+            opt = scipy.optimize.minimize(
+                fun, u0, jac=True, method="L-BFGS-B", bounds=sbounds,
+                options={"maxiter": maxiter, "gtol": gtol, "ftol": ftol},
+            )
+            nlls.append(opt.fun)
+            u_all.append(opt.x)
+            messages.append(str(opt.message))
+        nlls = np.asarray(nlls)
+        u_all = np.asarray(u_all)
+    else:
+        raise ValueError(f"unknown backend {backend!r}")
 
     finite = np.isfinite(nlls)
     if not finite.any():
@@ -95,4 +131,6 @@ def map_fit(
         nll_values=nlls,
         u_all=u_all,
         messages=messages,
+        n_evals=n_evals,
+        n_syncs=n_syncs,
     )

@@ -20,10 +20,12 @@ from __future__ import annotations
 
 from typing import Callable, Dict, NamedTuple
 
+import numpy as np
 import torch
 
 from ..ops import kronlik
 from ..ops.kernels import TEMPORAL_KERNELS
+from ..ops.rff import rff_draws, se_rff_features
 from .params import ParamSet
 
 
@@ -153,3 +155,149 @@ def posterior_predict(fns: ModelFns, theta: Dict, Y, kphig=None, kphi=None,
         comps = [kronlik.kron_cross_mean(kxz, kts, V) for kts in kt_stars]
         out[name] = (sum(comps), comps)
     return out
+
+
+def posterior_variance(fns: ModelFns, theta: Dict, kxz, prior_spatial_diag,
+                       t_data, t_star):
+    """Pointwise posterior variance of the (total) latent field at the
+    prediction grid, fully factored: with cross-covariance
+    ``c = kxz[:, i] (x) ktt[:, j]``,
+
+        var_ij = prior_ij - sum_ab (Qs^T kxz)_ai^2 (Qt^T ktt)_bj^2 / D_ab
+
+    i.e. two small congruences plus one (nx, nt) x (nt, ntstar) matmul
+    chain, never the (nx*nt)^2 joint covariance.
+
+    :param kxz: (nx, nz) spatial cross-covariance to the target field
+    :param prior_spatial_diag: (nz,) prior spatial variance at the targets
+    :param t_data, t_star: data and prediction times, tensors on the
+        device of ``kxz``
+    :return: (nz, ntstar) variance tensor
+    """
+    fac = fns.build_factors(theta)
+    ktt = fns.build_kt(theta, t=t_data, tprime=t_star)
+    # prior temporal variance at t_star (sum of component variances)
+    kt_star_diag = torch.diagonal(fns.build_kt(theta, t=t_star, tprime=t_star))
+    prior = prior_spatial_diag[:, None] * kt_star_diag[None, :]
+    As = torch.square(fac.qs.mT @ kxz)  # (nx, nz)
+    At = torch.square(fac.qt.mT @ ktt)  # (nt, ntstar)
+    return prior - As.mT @ (1.0 / fac.d) @ At
+
+
+class MatheronDraws(NamedTuple):
+    """Every random number one ``predict_samples`` call consumes (numpy)."""
+
+    eps: np.ndarray  # (n_draws, n_latent, n_time_union) standard normals: the prior field
+    noise: np.ndarray  # (n_draws, nx, nt) standard normals: the observation noise
+    w_unit: np.ndarray | None = None  # (d, n_features) normals, method "rff" only
+    b: np.ndarray | None = None  # (n_features,) uniforms on [0, 2 pi), "rff" only
+
+
+def sample_method(method: str, n_union: int) -> str:
+    """``"exact"`` or ``"rff"``; ``"auto"`` is exact up to 2000 union points
+    (prediction sites plus quadrature nodes) and rff above."""
+    if method == "auto":
+        return "rff" if n_union > 2000 else "exact"
+    if method not in ("exact", "rff"):
+        raise ValueError(f"unknown method {method!r}")
+    return method
+
+
+def matheron_draws(seed, n_draws, n_latent, n_time_union, nx, nt, rff_dim=None) -> MatheronDraws:
+    """Draw a :class:`MatheronDraws` from ``numpy.random.default_rng(seed)``.
+
+    :param n_latent: columns of the spatial prior factor: the number of
+        union points (exact) or of random features (rff)
+    :param rff_dim: spatial dimension of the random features, or None for
+        the exact method
+    """
+    gen = np.random.default_rng(seed)
+    eps = gen.standard_normal((n_draws, n_latent, n_time_union))
+    noise = gen.standard_normal((n_draws, nx, nt))
+    if rff_dim is None:
+        return MatheronDraws(eps, noise)
+    return MatheronDraws(eps, noise, *rff_draws(gen, rff_dim, n_latent))
+
+
+def matheron_samples(fns: ModelFns, theta: Dict, y_obs, Ls, A, kphig, t_data, t_star,
+                     same_grid: bool, draws: MatheronDraws):
+    """Posterior CSD samples for one trial by Matheron's rule (pathwise
+    conditioning).
+
+    Draw (c*, y') jointly from the prior: the CSD on the union grid
+    z u (quadrature nodes), pushed through the quadrature operator ``A``
+    plus noise for y'; then correct, ``c* + Kzy Kyy^{-1} (y - y')``.
+    Everything stays factored.  With prediction times off the data grid the
+    joint prior is drawn on the union time grid t* u t_data (separable, so
+    one temporal Cholesky of size nt* + nt covers both blocks).
+
+    :param y_obs: (nx, nt) the trial conditioned on
+    :param Ls: (nz + ngl, n_latent) spatial prior factor on the union grid,
+        prediction sites first
+    :param A: (nx, ngl) quadrature operator
+    :param kphig: (nx, nz) LFP-CSD cross-covariance
+    :param same_grid: whether ``t_star`` is the data grid itself
+    :return: (n_draws, nz, ntstar) tensor
+    """
+    nz, nt, nts = kphig.shape[1], t_data.numel(), t_star.numel()
+    dev = y_obs.device
+    if same_grid:
+        t_union = t_data
+        sl_star = sl_data = slice(0, nt)
+    else:
+        t_union = torch.cat([t_star, t_data])
+        sl_star, sl_data = slice(0, nts), slice(nts, nts + nt)
+    Kt_u = fns.build_kt(theta, t=t_union, tprime=t_union)
+    # off the data grid a relative jitter keeps the Cholesky stable even
+    # when t* overlaps data times (exactly duplicated rows)
+    jit_t = 1e-10 if same_grid else 1e-8 * torch.mean(torch.diagonal(Kt_u)) + 1e-12
+    Lt = torch.linalg.cholesky(
+        Kt_u + jit_t * torch.eye(t_union.numel(), dtype=Kt_u.dtype, device=dev)
+    )
+    eps = torch.as_tensor(draws.eps, dtype=Ls.dtype, device=dev)
+    noise = torch.as_tensor(draws.noise, dtype=Ls.dtype, device=dev)
+    prior_fields = Ls @ eps @ Lt.mT
+    c_star = prior_fields[:, :nz, sl_star]  # CSD prior draws at (z, t*)
+    csd_gl = prior_fields[:, nz:, sl_data]  # CSD at (quadrature nodes, t_data)
+    sig2n = fns.full_theta(theta)["sig2n"]
+    y_prior = A @ csd_gl + torch.sqrt(torch.atleast_1d(sig2n))[:, None] * noise
+    V = kronlik.kron_solve(fns.build_factors(theta), y_obs[None] - y_prior)
+    Kt_cross = fns.build_kt(theta, t=t_data, tprime=t_star)
+    return c_star + kronlik.kron_cross_mean(kphig, Kt_cross, V)
+
+
+def predict_samples(fns: ModelFns, theta: Dict, y_obs, union, nz, prior_gram, ells, jitter,
+                    A, kphig, t_data, t_star, n_draws, seed, method, n_features, draws=None):
+    """The model classes' ``predict_samples``: choose the spatial prior
+    factor (:func:`sample_method`), draw (:func:`matheron_draws`, unless
+    ``draws`` is given) and sample (:func:`matheron_samples`).
+
+    :param union: prediction sites then quadrature nodes, (n,) or (n, d),
+        a tensor on the model's device; ``nz`` of them are sites
+    :param prior_gram: ``union -> (n, n)`` SE correlation (method "exact",
+        factored by Cholesky with ``jitter`` on the diagonal)
+    :param ells: the SE lengthscale, or a (d,) tensor of them (method "rff")
+    :param t_data, t_star: numpy time vectors
+    :return: (n_draws, nz, ntstar) numpy array
+    """
+    n_union, dev = union.shape[0], union.device
+    nx, nt = y_obs.shape
+    method = sample_method(method, n_union)
+    same_grid = np.array_equal(t_star, t_data)
+    if draws is None:
+        draws = matheron_draws(
+            seed, n_draws, n_features if method == "rff" else n_union,
+            nt if same_grid else t_star.size + nt, nx, nt,
+            rff_dim=(1 if union.ndim == 1 else union.shape[1]) if method == "rff" else None,
+        )
+    if method == "exact":
+        eye = torch.eye(n_union, dtype=union.dtype, device=dev)
+        Ls = torch.linalg.cholesky(prior_gram(union) + jitter * eye)
+    else:
+        Ls = se_rff_features(union, ells, draws.w_unit, draws.b)
+    out = matheron_samples(
+        fns, theta, y_obs, Ls, A, kphig,
+        torch.as_tensor(t_data, dtype=union.dtype, device=dev),
+        torch.as_tensor(t_star, dtype=union.dtype, device=dev), same_grid, draws,
+    )
+    return out.cpu().numpy()

@@ -1,9 +1,9 @@
 """Covariance components with the reference's param-dict API.
 
-Counterpart of ``gpcsd_tpu.models.covariances`` (1D spatial SE, temporal SE
-and Matern-1/2), mirroring the reference ``covariances.py``
-(``GPCSD1DSpatialCovSE`` ``:29-96``, ``GPCSDTemporalCovSE`` ``:240-271``,
-``GPCSDTemporalCovMatern`` ``:274-305``).  Each param entry is
+Counterpart of ``gpcsd_tpu.models.covariances`` (1D and 2D spatial SE,
+temporal SE and Matern-1/2), mirroring the reference ``covariances.py``
+(``GPCSD1DSpatialCovSE`` ``:29-96``, ``GPCSD2DSpatialCovSE`` ``:134-232``,
+``GPCSDTemporalCovSE`` ``:240-271``, ``GPCSDTemporalCovMatern`` ``:274-305``).  Each param entry is
 ``{'value', 'prior', 'min', 'max'}`` as in the reference.  Initial values
 are prior draws from an explicit ``numpy.random.Generator`` (a fresh
 ``default_rng(0)`` when none is given).
@@ -12,11 +12,13 @@ are prior draws from an explicit ``numpy.random.Generator`` (a fresh
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .. import config
 from ..ops import kernels as k_ops
 from ..ops import spatial as sp_ops
-from ..ops.quadrature import gauss_legendre
+from ..ops.quadrature import gauss_legendre, gauss_legendre_2d
+from ..utils.grids import reduce_grid
 from .priors import HalfNormal, InvGamma
 
 
@@ -96,6 +98,102 @@ class GPCSD1DSpatialCovSE:
             _on(self.x, device), _on(self.gl_x, device), _on(self.gl_w, device),
             self.params["ell"]["value"], R, xp=None if xp is None else _on(xp, device),
         )
+
+
+def _pts_on(a, device):
+    """(n, 2) float64 tensor of the point list ``a`` on ``device``."""
+    return k_ops._pts(a).to(config.get_device(device))
+
+
+class GPCSD2DSpatialCov:
+    """Geometry of a 2D spatial covariance: the electrode sites, the
+    tensor-product Gauss-Legendre rule and the site-to-node distances
+    (numpy, host-side)."""
+
+    def __init__(self, x, a1, b1, a2, b2, ngl1, ngl2):
+        self.x = np.asarray(x, dtype=np.float64)
+        self.a1, self.b1, self.a2, self.b2 = a1, b1, a2, b2
+        self.ngl1, self.ngl2 = int(ngl1), int(ngl2)
+        rule = gauss_legendre_2d(a1, b1, a2, b2, self.ngl1, self.ngl2)
+        self.gl_x_grid = rule.xy  # (ngl1*ngl2, 2)
+        self.gl_w_prod = rule.w  # (ngl1*ngl2,)
+        self._recompute_deltas()
+
+    def _recompute_deltas(self):
+        self.delta_w = sp_ops.pairwise_w(self.x, self.gl_x_grid).numpy()
+
+    def reset_x(self, x_new):
+        self.x = np.asarray(x_new, dtype=np.float64)
+        self._recompute_deltas()
+
+
+class GPCSD2DSpatialCovSE(GPCSD2DSpatialCov):
+    """Product-SE spatial covariance with the 2D forward model folded in by
+    quadrature."""
+
+    kind = "se2d"
+
+    def __init__(self, x, ell_prior1=None, ell_prior2=None, a1=None, b1=None,
+                 a2=None, b2=None, ngl1=100, ngl2=100, gen=None):
+        x = np.asarray(x, dtype=np.float64)
+        a1 = float(np.min(x[:, 0])) if a1 is None else a1
+        b1 = float(np.max(x[:, 0])) if b1 is None else b1
+        a2 = float(np.min(x[:, 1])) if a2 is None else a2
+        b2 = float(np.max(x[:, 1])) if b2 is None else b2
+        super().__init__(x, a1, b1, a2, b2, ngl1, ngl2)
+        gen = _gen(gen)
+        x1, x2 = reduce_grid(x)
+        if ell_prior1 is None:
+            ell_prior1 = _interval_prior(
+                2.0 * np.min(np.diff(x1)), 2.0 * (np.max(x1) - np.min(x1))
+            )
+        if ell_prior2 is None:
+            ell_prior2 = _interval_prior(2.0 * np.min(np.diff(x2)), np.max(x2) - np.min(x2))
+        # bound conventions follow the reference (``covariances.py:166-171``)
+        self.params = {
+            "ell1": {
+                "value": _prior_draw(ell_prior1, gen),
+                "prior": ell_prior1,
+                "min": float(np.min(np.diff(x1))),
+                "max": float(5.0 * np.max(x1) - np.min(x1)),
+            },
+            "ell2": {
+                "value": _prior_draw(ell_prior2, gen),
+                "prior": ell_prior2,
+                "min": float(np.min(np.diff(x2))),
+                "max": float(np.max(x2) - np.min(x2)),
+            },
+        }
+
+    def _ells(self):
+        return self.params["ell1"]["value"], self.params["ell2"]["value"]
+
+    def geometry(self, device):
+        """``(delta_w, gl_xy, gl_w)`` as tensors on ``device``."""
+        device = config.get_device(device)
+        return (
+            torch.as_tensor(self.delta_w, dtype=config.DTYPE).to(device),
+            _pts_on(self.gl_x_grid, device),
+            _on(self.gl_w_prod, device),
+        )
+
+    def compute_Ks(self, device=config.DEFAULT_DEVICE):
+        """CSD-space spatial correlation at the electrode sites (nx, nx)."""
+        x = _pts_on(self.x, device)
+        return k_ops.se_2d(x, x, *self._ells())
+
+    def compKphig_2d(self, z, R, eps, device=config.DEFAULT_DEVICE):
+        """LFP-CSD spatial cross covariance (nx, nz) for (nz, 2) sites z."""
+        delta_w, gl_xy, gl_w = self.geometry(device)
+        return sp_ops.kphig_2d(
+            delta_w, gl_xy, _pts_on(z, device), gl_w, *self._ells(), R, eps
+        )
+
+    def compKphi_2d(self, R, eps, xp=None, device=config.DEFAULT_DEVICE):
+        """LFP-LFP spatial covariance (nx, nxp)."""
+        delta_w, gl_xy, gl_w = self.geometry(device)
+        dwp = None if xp is None else sp_ops.pairwise_w(_pts_on(xp, device), gl_xy)
+        return sp_ops.kphi_2d(delta_w, gl_xy, gl_w, *self._ells(), R, eps, delta_w_p=dwp)
 
 
 class GPCSDTemporalCov:

@@ -1,4 +1,5 @@
-"""The auditory paper configuration: in-family surrogate data and the model.
+"""The configurations the port is measured at: the auditory paper model with
+its in-family surrogate data, and the Neuropixels 2D problem.
 
 Counterpart of ``scripts/paper_nuts_run.py`` (``paper_surrogate``,
 ``build_model``) with the auditory workload's constants
@@ -6,6 +7,9 @@ Counterpart of ``scripts/paper_nuts_run.py`` (``paper_surrogate``,
 [0, 2300] um, 1 kHz sampling, quadrature over [-200, 2600] um at ngl=100,
 SE + Matern-1/2 temporal components and 24 per-channel noise variances.
 The baseline window (t < 0) of a 1200-sample surrogate is nt=600.
+
+:func:`neuropixels_problem` is the port's copy of ``scripts/bench_2d.py``
+(``build_problem``): GPCSD2D at the Neuropixels shape.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from .models.covariances import (
     GPCSDTemporalCovSE,
 )
 from .models.gpcsd1d import GPCSD1D
+from .models.gpcsd2d import GPCSD2D
 from .models.priors import HalfNormal, InvGamma
 
 FS = 1000.0  # Hz
@@ -95,3 +100,43 @@ def build_model(lfp, time_ms, het_noise="approx", device=config.DEFAULT_DEVICE):
         het_noise=het_noise,
         device=device,
     )
+
+
+#: the Neuropixels 2D problem: 150 ms at 2.5 kHz, 100 trials, 30 x 120 nodes
+NP_NT, NP_NTRIALS = 375, 100
+NP_NGL1, NP_NGL2 = 30, 120
+
+
+def neuropixels_geometry():
+    """(69, 2) electrode sites of the staggered 4-column Neuropixels layout:
+    2 channels per 20 um row (reference ``neuropixels/extract_data.py:20-42``
+    channel -> (x, y) map)."""
+    cols = np.array([16.0, 48.0, 0.0, 32.0])
+    idx = np.arange(69)
+    return np.stack([cols[idx % 4], 20.0 * (idx // 2)], axis=1)
+
+
+def neuropixels_problem(seed=0, nt=NP_NT, ntrials=NP_NTRIALS, ngl1=NP_NGL1, ngl2=NP_NGL2,
+                        device=config.DEFAULT_DEVICE):
+    """GPCSD2D at the Neuropixels shape: nx=69, nt=375 (150 ms at 2.5 kHz),
+    100 trials of white-noise LFP from ``numpy.random.default_rng(seed)``,
+    a 30 x 120 quadrature rule on the domain padded by 16 um and 100 um as
+    in the reference fit (``fit_gpcsd2d.py:88-90``), ``eps=1``, SE +
+    Matern-1/2, scalar noise (8 parameters), at fixed parameter values.
+    The size arguments exist for small test problems on the same geometry."""
+    rng = np.random.default_rng(seed)
+    x = neuropixels_geometry()
+    t = np.arange(nt).reshape(-1, 1) * 0.4
+    lfp = rng.normal(size=(x.shape[0], nt, ntrials))
+    m = GPCSD2D(lfp, x, t, ngl1=ngl1, ngl2=ngl2, eps=1.0,
+                a1=x[:, 0].min() - 16.0, b1=x[:, 0].max() + 16.0,
+                a2=x[:, 1].min() - 100.0, b2=x[:, 1].max() + 100.0, device=device)
+    m.R["value"] = 100.0
+    m.spatial_cov.params["ell1"]["value"] = 40.0
+    m.spatial_cov.params["ell2"]["value"] = 150.0
+    m.temporal_cov_list[0].params["ell"]["value"] = 10.0
+    m.temporal_cov_list[0].params["sigma2"]["value"] = 1.0
+    m.temporal_cov_list[1].params["ell"]["value"] = 2.0
+    m.temporal_cov_list[1].params["sigma2"]["value"] = 0.5
+    m.sig2n["value"] = 0.1
+    return m

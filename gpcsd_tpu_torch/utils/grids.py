@@ -9,6 +9,18 @@ from __future__ import annotations
 import numpy as np
 
 
+def normalize(x):
+    """Scale an (nx, nt, ...) array by its max absolute value over axes (0, 1)."""
+    return x / np.max(np.abs(x), axis=(0, 1))
+
+
+def sort_grid(x):
+    """Lexicographically sort an (n, 2) point array by column 0 then column 1."""
+    x = np.asarray(x)
+    order = np.lexsort((x[:, 1], x[:, 0]))
+    return x[order]
+
+
 def expand_grid(x1, x2):
     """Tensor-product grid: all (a, b) pairs, a in x1 (outer), b in x2 (inner).
 
@@ -20,3 +32,9 @@ def expand_grid(x1, x2):
     a = np.repeat(x1, x2.size)
     b = np.tile(x2, x1.size)
     return np.stack([a, b], axis=1)
+
+
+def reduce_grid(x):
+    """Inverse of :func:`expand_grid`: unique sorted values per column."""
+    x = np.asarray(x)
+    return np.sort(np.unique(x[:, 0])), np.sort(np.unique(x[:, 1]))

@@ -1,6 +1,6 @@
 """PyTorch port on the card: the quadform CUDA kernel, the log-joint (single
-and batched), ``predict`` and ``sample_posterior`` on CUDA, against their
-plain versions and the CPU.
+and batched, 1D and 2D), ``predict``, ``sample_posterior`` and the batched
+L-BFGS ``fit`` on CUDA, against their plain versions and the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them.  The
 card has no JAX and ``tests/conftest.py`` imports it, so run this file
@@ -36,6 +36,9 @@ def inputs(seed, nx, nt, ntrials):
 
 @pytest.mark.parametrize("shape", [
     (24, 600, 100), (7, 129, 3), (69, 375, 5),
+    # the Neuropixels 2D shape: odd nt (Qt copied to an even row stride),
+    # nx not a multiple of the row tile, 16-row fragments straddling trials
+    (69, 375, 100),
     # edges of the kernel's tiling: one trial (less than one row tile),
     # ragged k and j edges, a trial over several row tiles, nx = 811, 1 x 8
     (24, 600, 1), (24, 601, 7), (130, 64, 2), (811, 16, 1), (1, 8, 1),
@@ -179,3 +182,51 @@ def test_sample_posterior_launches_the_kernel():
     assert post.raw.samples.is_cuda and post.raw.samples.shape == (4, 20, 16)
     assert all(np.isfinite(v).all() for v in post.theta.values())
     assert (post.diagnostics["step_size"] > 1e-3).all()
+
+
+def small_models_2d():
+    """The Neuropixels geometry at a small size (nt=24, 4 trials, an 8 x 20
+    rule), on the card and on the CPU."""
+    from gpcsd_tpu_torch import paper
+
+    kw = dict(seed=3, nt=24, ntrials=4, ngl1=8, ngl2=20)
+    return paper.neuropixels_problem(**kw), paper.neuropixels_problem(device="cpu", **kw)
+
+
+def test_log_prob_2d_cuda_matches_cpu():
+    """GPCSD2D log_prob on the card against the CPU, through the kernel.
+    The 69 x 69 quadrature Gram has norm ~1e9 and eigenvalues down at the
+    noise variance, where the two eigensolvers' errors (1e-16 of the norm)
+    weigh ~1e-5 of the noise: value rtol 1e-4, gradient 2e-3 in norm (an
+    H100 reads 1.6e-5 and 2.3e-4 here, 1.4e-5 and 1.6e-4 at the full shape)."""
+    m_gpu, m_cpu = small_models_2d()
+    u = m_cpu._fns().param_set.pack(m_cpu._theta()).numpy()
+    out = []
+    before = qf.launch_count
+    for m in (m_gpu, m_cpu):
+        ut = torch.tensor(u, device=m.device, requires_grad=True)
+        lp = m._fns().log_prob(ut, m._Y())
+        (g,) = torch.autograd.grad(lp, ut)
+        out.append((float(lp.detach()), g.cpu().numpy()))
+    assert qf.launch_count == before + 1
+    assert np.isfinite(out[0][0]) and np.all(np.isfinite(out[0][1]))
+    value_err = abs(out[0][0] - out[1][0]) / abs(out[1][0])
+    grad_err = np.linalg.norm(out[0][1] - out[1][1]) / np.linalg.norm(out[1][1])
+    print(f"2D log_prob card vs CPU: value {value_err:.3e}, gradient {grad_err:.3e}")
+    assert value_err <= 1e-4 and grad_err <= 2e-3
+
+
+def test_fit_torch_backend_launches_the_kernel():
+    """``fit(backend="torch")`` on the card: one kernel launch per row the
+    optimizer evaluated, every restart finite and no higher than its start."""
+    from gpcsd_tpu_torch.infer.map import sample_restarts
+
+    m, _ = small_models_2d()
+    fns, Y = m._fns(), m._Y()
+    u0s = torch.tensor(sample_restarts(fns.param_set, np.random.default_rng(0), 3), device="cuda")
+    with torch.no_grad():
+        nll0 = fns.neg_log_joint(u0s, Y).cpu().numpy()
+    before = qf.launch_count
+    res = m.fit(n_restarts=3, seed=0, options={"maxiter": 5})
+    assert qf.launch_count - before == int(res.n_evals.sum()) > 0
+    assert np.all(np.isfinite(res.nll_values)) and np.all(res.nll_values <= nll0)

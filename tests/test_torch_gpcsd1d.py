@@ -65,7 +65,9 @@ class TestPackage:
             "import sys, gpcsd_tpu_torch, gpcsd_tpu_torch.paper, gpcsd_tpu_torch.convert, "
             "gpcsd_tpu_torch.infer.hmc, gpcsd_tpu_torch.infer.dense_metric, "
             "gpcsd_tpu_torch.infer.nuts, gpcsd_tpu_torch.infer.diagnostics, "
-            "gpcsd_tpu_torch.models.inference_api; "
+            "gpcsd_tpu_torch.models.inference_api, gpcsd_tpu_torch.models.gpcsd2d, "
+            "gpcsd_tpu_torch.infer.lbfgs, gpcsd_tpu_torch.infer.map, gpcsd_tpu_torch.ops.rff, "
+            "gpcsd_tpu_torch.ops.spatial, gpcsd_tpu_torch.ops.forward, gpcsd_tpu_torch.utils.grids; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gpcsd_tpu')))"
         )
         out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -100,6 +102,10 @@ class TestPackage:
             paper.paper_surrogate(0, 8, 2)
         with pytest.raises(RuntimeError, match="CUDA"):
             paper.build_model(np.zeros((24, 8, 2)), np.arange(8.0) - 4.0)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            paper.neuropixels_problem(0, nt=4, ntrials=1, ngl1=2, ngl2=2)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            gt.GPCSD2DSpatialCovSE(paper.neuropixels_geometry(), ngl1=2, ngl2=2).compute_Ks()
         with pytest.raises(RuntimeError, match="CUDA"):
             convert.theta_from_numpy({"R": 1.0})
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -308,7 +314,8 @@ def test_map_fit_matches_jax_from_same_start():
     u0s = np.asarray(j_sample_restarts(jfns.param_set, key, 2))
     jres = j_map_fit(jfns.neg_log_joint, jfns.param_set, jm._Y(), key, n_restarts=2,
                      backend="scipy", maxiter=200)
-    tres = t_map_fit(tfns.neg_log_joint, tfns.param_set, tm._Y(), u0s, maxiter=200)
+    tres = t_map_fit(tfns.neg_log_joint, tfns.param_set, tm._Y(), u0s, backend="scipy",
+                     maxiter=200)
     np.testing.assert_allclose(tres.nll_values, jres.nll_values, rtol=1e-8)
     np.testing.assert_allclose(tres.u_best, jres.u_best, atol=1e-4)
 
