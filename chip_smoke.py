@@ -56,10 +56,28 @@ one JSON line each:
 14. timing_2d: value+grad evals/s in 2D, the kernel vs its plain version and
    its bound at (69, 375, 100), and from ``torch.profiler`` the device time
    per evaluation and its largest kernels (printed last, measured in part
-   before the 1D posterior phases, the profile after them).
+   before the 1D posterior phases, the profile after them);
+15. reparam: ``AmplitudeReparam`` at the 8 banked draws: the round trip,
+   ``log_prob_v(T(u))`` against ``log_prob(u)``, and card vs CPU;
+16. advi: ``advi_fit`` for 12 steps at ``n_mc=8`` from the banked centre:
+   every ELBO finite, launches = steps x n_mc, the first ELBO card vs CPU on
+   the same draws, ms per step;
+17. smc: ``smc_run`` on the model's ``log_prior_u`` / ``loglik`` from 32
+   prior particles, 2 mutation steps, at most 4 stages: temperatures rising,
+   evidence finite, launches = N x (1 + stages x mutation steps), the first
+   stage card vs CPU, host reads per stage, ms per particle evaluation;
+18. ic: ``information_criteria(max_draws=32)`` on the nuts phase's posterior:
+   WAIC and PSIS-LOO finite, the largest Pareto k, and the pointwise terms
+   summed over trials against ``loglik`` through the kernel;
+19. paper_run: the paper run (``gpcsd_tpu_torch.paper_run.main``, the
+   function behind ``scripts/torch_paper_nuts_run.py``) at short lengths,
+   three times: stopped by ``--max-seconds`` (exit code 3), finished from
+   the saved state, and uninterrupted on the same cached inputs; the two
+   sets of draws are equal bit for bit and the artifact holds every key.
 
 The quadform launch count is set to 0 before each stretch of the main path
-(log_prob + fit, hessian, nuts, log_prob_2d, fit_2d) and read after it;
+(log_prob + fit, hessian, nuts, log_prob_2d, fit_2d, reparam, advi, smc, ic,
+paper_run) and read after it;
 ``predict`` and the other outputs solve with the factors and launch no
 kernel.  Any failure raises and the script
 exits non-zero.  Without CUDA, or run outside a checkout of the repository,
@@ -69,8 +87,10 @@ it fails before printing a result.
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -374,6 +394,215 @@ def phase_nuts(qf, gpu, H, u_center, banked_u, smi):
     check(d["diverging"].mean() <= 0.05, "nuts: over 5% of the sampling draws diverged")
     check(np.abs(z).max() <= 1.0,
           f"nuts: a parameter's mean is {np.abs(z).max():.2f} banked sd from the banked mean")
+    return launches, post
+
+
+# ------------------------------- the other engines and the paper run
+
+#: lengths of the new phases
+ADVI_STEPS, ADVI_N_MC = 12, 8
+SMC_PARTICLES, SMC_MUTATIONS, SMC_MAX_STAGES = 32, 2, 4
+#: the artifact's keys: those of the banked JAX run's JSON, with the device's
+#: name and nvidia-smi line for ``backend`` / ``n_devices``, and the two
+#: verdicts
+ARTIFACT_KEYS = {
+    "config", "device", "nvidia_smi", "samples_per_s_per_chip_median",
+    "samples_per_s_per_chip_wall", "median_sampling_chunk_s", "median_warmup_chunk_s",
+    "total_chunk_wall_s", "divergences", "mean_leapfrogs_per_sample", "mean_acceptance",
+    "max_rhat", "min_ess", "min_ess_tail", "rhat", "ess", "ess_tail", "step_size",
+    "posterior_mean", "posterior_sd", "truth", "posterior_quantiles", "vs_banked", "healthy",
+}
+
+
+def phase_reparam(qf, gpu, cpu, draws):
+    """The amplitude reparameterization at the banked draws: round trip to
+    1e-10, ``log_prob_v(T(u))`` against ``log_prob(u)`` to 1e-12 relative
+    (the same point up to the round trip's roundoff), card vs CPU to 1e-10."""
+    from gpcsd_tpu_torch.models.reparam import AmplitudeReparam
+
+    gfns, gY = gpu._fns(), gpu._Y()
+    rp, rp_cpu = AmplitudeReparam(gfns), AmplitudeReparam(cpu._fns())
+    u = torch.tensor(draws, device=gpu.device)
+    qf.launch_count = 0
+    with torch.no_grad():
+        v = rp.forward(u)
+        round_trip = float((rp.inverse(v) - u).abs().max())
+        lp_v = rp.wrap_log_prob(gfns.log_prob)(v, gY)
+        lp_u = gfns.log_prob(u, gY)
+        v_cpu = rp_cpu.forward(torch.tensor(draws))
+    launches = qf.launch_count
+    lp_rel = float(((lp_v - lp_u).abs() / lp_u.abs()).max())
+    vs_cpu = float((v.cpu() - v_cpu).abs().max())
+    emit("reparam", draws=len(draws), launches=launches, round_trip_max_abs=round_trip,
+         log_prob_rel_err=lp_rel, forward_vs_cpu_max_abs=vs_cpu,
+         moved_max_abs=float((v - u).abs().max()))
+    check(round_trip <= 1e-10, f"reparam: inverse(forward(u)) off by {round_trip}")
+    check(lp_rel <= 1e-12, f"reparam: log_prob_v(T(u)) vs log_prob(u) rel {lp_rel}")
+    check(vs_cpu <= 1e-10, f"reparam: forward card vs CPU {vs_cpu}")
+    check(launches == 2 * len(draws), f"reparam: {launches} launches for {2 * len(draws)} rows")
+    return launches
+
+
+def phase_advi(qf, gpu, cpu, u_center):
+    """A few ADVI steps from the banked centre; the first ELBO against the
+    CPU on the same draws to 1e-9 relative."""
+    from gpcsd_tpu_torch.infer.advi import advi_fit, draw_eps, elbo
+
+    gfns, gY = gpu._fns(), gpu._Y()
+    cfns, cY = cpu._fns(), cpu._Y()
+    eps = draw_eps(torch.Generator().manual_seed(0), ADVI_STEPS, ADVI_N_MC, u_center.size)
+    qf.launch_count = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = advi_fit(lambda u: gfns.log_prob(u, gY), torch.tensor(u_center, device=gpu.device),
+                   num_steps=ADVI_STEPS, n_mc=ADVI_N_MC, eps=eps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = qf.launch_count
+    trace = res.elbo_trace.cpu().numpy()
+    mu0 = torch.tensor(u_center)
+    with torch.no_grad():
+        first_cpu = float(elbo(lambda u: cfns.log_prob(u, cY), mu0, torch.full_like(mu0, -2.0), eps[0]))
+    emit("advi", steps=ADVI_STEPS, n_mc=ADVI_N_MC, launches=launches, seconds=seconds,
+         ms_per_step=1e3 * seconds / ADVI_STEPS, elbo_first=float(trace[0]),
+         elbo_last=float(trace[-1]), elbo_first_cpu=first_cpu,
+         elbo_first_rel_err_vs_cpu=rel(float(trace[0]), first_cpu),
+         mu_moved_max_abs=float((res.mu.cpu() - mu0).abs().max()))
+    check(np.all(np.isfinite(trace)), f"advi: a step's ELBO is not finite: {trace}")
+    check(bool(torch.isfinite(res.mu).all() and torch.isfinite(res.rho).all()), "advi: mu or rho")
+    check(launches == ADVI_STEPS * ADVI_N_MC,
+          f"advi: {launches} launches for {ADVI_STEPS} steps x {ADVI_N_MC} draws")
+    check(rel(float(trace[0]), first_cpu) <= 1e-9, "advi: first ELBO card vs CPU above 1e-9")
+    return launches
+
+
+def phase_smc(qf, gpu, cpu):
+    """Tempered SMC from prior particles on the model's own prior and
+    likelihood; the first stage's temperature step and evidence increment
+    against the CPU on the same numbers: 1e-6 relative for the step, 1e-5 for
+    the increment.  At prior draws the two eigensolvers agree less well than
+    at posterior draws (phase ``log_prob``: 1e-9): the increment's reading on
+    an H100 is 9.8e-7, a ~1.4e-7 relative difference in the largest
+    log-likelihoods (~1.4e6) times the temperature step."""
+    from gpcsd_tpu_torch.infer.smc import smc_run
+
+    def evaluators(model):
+        fns, Y = model._fns(), model._Y()
+        return fns.log_prior_u, lambda u: fns.loglik(fns.param_set.unpack(u), Y)
+
+    p0 = gpu._prior_starts(gpu._fns(), 0, SMC_PARTICLES)
+    kw = dict(n_mutation_steps=SMC_MUTATIONS, chunk=16)
+    qf.launch_count = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = smc_run(*evaluators(gpu), torch.tensor(p0, device=gpu.device),
+                  torch.Generator().manual_seed(0), max_stages=SMC_MAX_STAGES, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = qf.launch_count
+    want = SMC_PARTICLES * (1 + res.n_stages * SMC_MUTATIONS)
+    one = smc_run(*evaluators(cpu), torch.tensor(p0), torch.Generator().manual_seed(0),
+                  max_stages=1, **kw)
+    lams = res.temperatures.cpu().numpy()
+    incs = res.log_evidence_increments.cpu().numpy()
+    errs = {"temperature": rel(float(lams[0]), float(one.temperatures[0])),
+            "evidence_increment": rel(float(incs[0]), float(one.log_evidence_increments[0]))}
+    emit("smc", particles=SMC_PARTICLES, mutation_steps=SMC_MUTATIONS, stages=res.n_stages,
+         launches=launches, seconds=seconds, ms_per_particle_evaluation=1e3 * seconds / launches,
+         temperatures=lams.tolist(), log_evidence=float(res.log_evidence),
+         log_evidence_increments=incs.tolist(), acceptance=float(res.acceptance),
+         host_reads_per_stage=res.n_host_reads / res.n_stages, first_stage_rel_err_vs_cpu=errs)
+    check(res.n_stages >= 1 and np.all(np.diff(np.concatenate([[0.0], lams])) > 0),
+          f"smc: temperatures do not rise: {lams}")
+    check(np.isfinite(float(res.log_evidence)), "smc: log-evidence is not finite")
+    check(bool(torch.isfinite(res.particles).all()), "smc: a particle is not finite")
+    check(launches == want, f"smc: {launches} launches for {want} particle evaluations")
+    check(res.n_host_reads == res.n_stages, "smc: more than one host read per stage")
+    check(errs["temperature"] <= 1e-6 and errs["evidence_increment"] <= 1e-5,
+          f"smc: first stage card vs CPU {errs}")
+    return launches
+
+
+def phase_ic(qf, gpu, post):
+    """WAIC and PSIS-LOO over the nuts phase's posterior, and the pointwise
+    terms summed over trials against ``loglik`` through the kernel (plus
+    the 2 pi constant) to 1e-9 relative."""
+    from gpcsd_tpu_torch.infer import model_comparison as mc
+
+    gfns, gY = gpu._fns(), gpu._Y()
+    ntrials, nx, nt = gY.shape
+    gpu.posterior = post
+    qf.launch_count = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = gpu.information_criteria(max_draws=32)
+    seconds = time.perf_counter() - t0
+    us = post.raw.samples[:, -2:].reshape(-1, post.raw.samples.shape[-1])  # 8 draws
+    ll = mc.pointwise_loglik(gfns, us, gY)
+    with torch.no_grad():
+        want = gfns.loglik(gfns.param_set.unpack(us), gY).cpu().numpy()
+    launches = qf.launch_count
+    want = want - 0.5 * ntrials * nx * nt * np.log(2.0 * np.pi)
+    sum_err = float(np.max(np.abs(ll.sum(axis=1) - want) / np.abs(want)))
+    emit("ic", draws=out["n_draws"], seconds=seconds, seconds_per_draw=seconds / out["n_draws"],
+         launches=launches, trials=ntrials, sum_over_trials_rel_err_vs_kernel=sum_err,
+         waic={k: v for k, v in out["waic"].items() if k != "pointwise_elpd"},
+         loo={k: v for k, v in out["loo"].items() if k not in ("pointwise_elpd", "pareto_k")},
+         max_pareto_k=float(np.max(out["loo"]["pareto_k"])))
+    check(out["n_draws"] == 32 and ll.shape == (len(us), ntrials), "ic: shapes")
+    for name, key in (("waic", "elpd_waic"), ("waic", "p_waic"), ("loo", "elpd_loo"), ("loo", "p_loo")):
+        check(np.isfinite(out[name][key]), f"ic: {key} is not finite")
+    check(out["loo"]["pointwise_elpd"].shape == (ntrials,), "ic: pointwise elpd")
+    check(sum_err <= 1e-9, f"ic: pointwise sum vs loglik through the kernel, rel {sum_err}")
+    check(launches == len(us), f"ic: {launches} launches for {len(us)} loglik rows")
+    return launches
+
+
+def phase_paper_run(qf, smi):
+    """The paper run at short lengths: stopped, resumed, and
+    uninterrupted on the same cached inputs."""
+    from gpcsd_tpu_torch import paper_run
+
+    lengths = ["--restarts", "2", "--map-maxiter", "5", "--polish-maxiter", "5",
+               "--warmup", "6", "--samples", "4"]
+    tmp = tempfile.mkdtemp(prefix="paper_run_")
+    try:
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        qf.launch_count = 0
+        t0 = time.perf_counter()
+        rc_stop = paper_run.main(["--out-dir", a, "--max-seconds", "0", *lengths])
+        stopped_at = len(json.load(open(os.path.join(a, "chunk_timing.json"))))
+        check(not os.path.exists(os.path.join(a, "paper_nuts_auditory.json")),
+              "paper_run: the stopped run wrote an artifact")
+        rc_resume = paper_run.main(["--out-dir", a, *lengths])
+        os.makedirs(b)
+        for name in ("surrogate_lfp.npz", "map_params.pkl", "mode_params.pkl", "hessian_f64.npz"):
+            shutil.copy2(os.path.join(a, name), os.path.join(b, name))
+        rc_whole = paper_run.main(["--out-dir", b, *lengths])
+        seconds = time.perf_counter() - t0
+        launches = qf.launch_count
+        art = json.load(open(os.path.join(a, "paper_nuts_auditory.json")))
+        with np.load(os.path.join(a, "posterior_samples.npz")) as da, \
+                np.load(os.path.join(b, "posterior_samples.npz")) as db:
+            same = all(np.array_equal(da[k], db[k]) for k in da.files) and set(da.files) == set(db.files)
+            draws_shape = list(da["raw_u"].shape)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    leapfrogs = art["mean_leapfrogs_per_sample"] * art["config"]["chains"] * art["config"]["samples"]
+    emit("paper_run", seconds=seconds, exit_codes=[rc_stop, rc_resume, rc_whole],
+         stopped_after_transitions=stopped_at, launches=launches, draws_shape=draws_shape,
+         resumed_equals_uninterrupted=bool(same), healthy=art["healthy"], max_rhat=art["max_rhat"],
+         divergences=art["divergences"], step_size=art["step_size"],
+         max_abs_z_vs_banked=max(abs(v["z"]) for v in art["vs_banked"].values()))
+    check([rc_stop, rc_resume, rc_whole] == [3, 0, 0], "paper_run: exit codes")
+    check(stopped_at == 5, f"paper_run: stopped after {stopped_at} transitions, not at the first save")
+    check(same, "paper_run: the resumed run's draws differ from the uninterrupted run's")
+    check(set(art) == ARTIFACT_KEYS, f"paper_run: artifact keys {sorted(set(art) ^ ARTIFACT_KEYS)}")
+    check(art["nvidia_smi"] == smi and art["config"]["nt"] == 600 and art["config"]["nx"] == 24,
+          "paper_run: the artifact's card or configuration")
+    check(draws_shape == [4, 4, 30], f"paper_run: draws have shape {draws_shape}")
+    check(launches >= 2 * leapfrogs > 0,
+          f"paper_run: {launches} launches for two runs of {leapfrogs} sampling leapfrogs")
     return launches
 
 
@@ -743,9 +972,16 @@ def main():
     set_params(cpu, u_center)
     phase_predict(gpu, cpu, time_ms)
     H, launches_hessian = phase_hessian(qf, gpu, cpu, u_center, banked_u)
-    launches_nuts = phase_nuts(qf, gpu, H, u_center, banked_u, smi)
+    launches_nuts, post = phase_nuts(qf, gpu, H, u_center, banked_u, smi)
     launches_by_phase = {"log_prob": launches_log_prob, "fit": launches_map - launches_log_prob,
                          "hessian": launches_hessian, "nuts": launches_nuts}
+
+    # ---- the other posterior engines, model comparison and the paper run
+    launches_by_phase["reparam"] = phase_reparam(qf, gpu, cpu, draws)
+    launches_by_phase["advi"] = phase_advi(qf, gpu, cpu, u_center)
+    launches_by_phase["smc"] = phase_smc(qf, gpu, cpu)
+    launches_by_phase["ic"] = phase_ic(qf, gpu, post)
+    launches_by_phase["paper_run"] = phase_paper_run(qf, smi)
 
     launches_2d = {"log_prob_2d": launches_log_prob_2d, "fit_2d": launches_fit_2d}
     emit("timing_2d", **timing_2d, **profile_2d(gpu2d))

@@ -4,9 +4,11 @@ A port of the JAX package ``gpcsd_tpu`` (which stays the reference), module
 for module: the quadrature covariances, the factored Kronecker marginal
 likelihood with a hand-written CUDA kernel for its quadratic form, the
 ``GPCSD1D`` and ``GPCSD2D`` models with their MAP fit (L-BFGS batched over
-restarts, or scipy), Laplace-whitened dense-metric NUTS posterior,
-predictions, posterior variance and Matheron posterior samples.  Float64 on every device, and the card is
-the default device.  This package imports neither JAX nor ``gpcsd_tpu``.
+restarts, or scipy), Laplace-whitened dense-metric NUTS posterior with
+checkpoint/resume, mean-field ADVI, adaptive tempered SMC, WAIC and
+PSIS-LOO, predictions, posterior variance and Matheron posterior samples,
+and the paper-scale NUTS run (``paper_run``).  Float64 on every device, and
+the card is the default device.  This package imports neither JAX nor ``gpcsd_tpu``.
 """
 
 from . import config  # noqa: F401

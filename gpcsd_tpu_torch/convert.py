@@ -9,9 +9,11 @@ of ``_theta()`` (``R``, ``ell`` or ``ell1``/``ell2``, ``tm{i}_ell``,
 ``temporal_sigma2_list``).  Values may be numpy arrays or floats, so no
 JAX type crosses into this package.  Sampler state crosses the same way:
 :func:`nuts_result_from_numpy` takes the fields of a JAX ``NUTSResult`` or
-the arrays of a banked ``posterior_samples.npz``, and
-:func:`hessian_from_numpy` a Laplace Hessian, so that both packages can be
-fed the same centre, Hessian and metric.
+the arrays of a banked ``posterior_samples.npz``,
+:func:`advi_result_from_numpy` and :func:`smc_result_from_numpy` those of
+the other two engines' results, and :func:`hessian_from_numpy` a Laplace
+Hessian, so that both packages can be fed the same centre, Hessian and
+metric.
 """
 
 from __future__ import annotations
@@ -21,7 +23,9 @@ import torch
 
 from . import config
 from .config import DTYPE
+from .infer.advi import ADVIResult
 from .infer.nuts import NUTSResult
+from .infer.smc import SMCResult
 from .models.gpcsd1d import GPCSD1D
 from .models.gpcsd2d import GPCSD2D
 from .models.inference_api import load_hessian
@@ -118,6 +122,27 @@ def nuts_result_from_numpy(d, device=config.DEFAULT_DEVICE) -> NUTSResult:
         return None
 
     return NUTSResult(*(field(name) for name in NUTSResult._fields))
+
+
+def _f64(a, device):
+    return torch.tensor(np.asarray(a, dtype=np.float64), device=config.get_device(device))
+
+
+def advi_result_from_numpy(d, device=config.DEFAULT_DEVICE) -> ADVIResult:
+    """The port's :class:`ADVIResult` (tensors on ``device``) from the
+    fields of a JAX ``ADVIResult`` (``res._asdict()``) as numpy arrays."""
+    return ADVIResult(*(_f64(d[name], device) for name in ADVIResult._fields))
+
+
+def smc_result_from_numpy(d, device=config.DEFAULT_DEVICE) -> SMCResult:
+    """The port's :class:`SMCResult` (tensors on ``device``) from the fields
+    of a JAX ``SMCResult`` (``res._asdict()``) as numpy arrays; the fields
+    only the port records keep their defaults."""
+    return SMCResult(
+        particles=_f64(d["particles"], device), log_weights=_f64(d["log_weights"], device),
+        log_evidence=_f64(d["log_evidence"], device), n_stages=int(d["n_stages"]),
+        acceptance=_f64(d["acceptance"], device),
+    )
 
 
 def hessian_from_numpy(H, dim=None) -> np.ndarray:

@@ -33,9 +33,12 @@ Random numbers are explicit.  A transition consumes a
 :class:`TransitionNoise` per chain, drawn by the caller
 (:func:`draw_noise`) from that chain's own ``torch.Generator``.
 
-The chunk programs, padding, ahead-of-time cache and ``state_path`` resume
-of ``nuts_chains_chunked`` are not carried over: they exist for the TPU
-worker's compile times.
+The chunk programs, padding and ahead-of-time cache of
+``nuts_chains_chunked`` are not carried over: they exist for the TPU
+worker's compile times.  Its ``state_path`` resume is, at the grain of one
+transition: :func:`nuts_chains` saves everything the loop carries,
+the chains' generator states included, so a run that is stopped and started
+again gives the draws of an uninterrupted one bit for bit.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..io.checkpoint import load_sampler_state, sampler_state_exists, save_sampler_state
 from ..models.core import value_and_grad_rows
 from .dense_metric import (
     dense_welford_cov,
@@ -393,6 +397,8 @@ def nuts_chains(
     dense_mass: bool = False,
     pool_warmup: bool = False,
     callback=None,
+    state_path=None,
+    save_every: int = 1,
 ) -> NUTSResult:
     """Multi-chain NUTS with Stan-style warmup, chains batched in lock-step.
     At 25%/50%/75% of warmup any chain whose dual-averaged step size has
@@ -411,6 +417,16 @@ def nuts_chains(
         Step-size adaptation stays per chain.
     :param callback: ``callback(i, carry)`` after transition ``i``, with
         ``carry = (z, logp, grad, da, wf, inv_mass)``
+    :param state_path: checkpoint file stem
+        (:func:`gpcsd_tpu_torch.io.checkpoint.save_sampler_state`).  When a
+        saved state is there the run continues from it, with the saved
+        generator states in place of those of ``gens`` (which are set to
+        them); it must come from a run with the same arguments.  The state
+        holds the next transition's index, ``carry``, the result buffers and
+        every generator's state, and is written BEFORE ``callback`` runs, so
+        a callback that raises at a saved transition loses nothing.
+    :param save_every: save after every this many transitions (and after
+        the last)
     """
     u0s = u0s.detach()
     nchains, dim = u0s.shape
@@ -430,23 +446,42 @@ def nuts_chains(
         wf_update, wf_estimate = welford_update, welford_variance
         inv_mass = torch.ones(nchains, dim, dtype=dtype, device=device)
 
-    xi0 = torch.stack([torch.randn(dim, generator=g, dtype=torch.float64) for g in gens])
-    step0 = find_reasonable_step_size(vg, u0s, xi0.to(device=device, dtype=dtype), inv_mass)
     slow, window_end = stan_warmup_schedule(num_warmup)
     guard_at = set()
     if nchains >= 2 and num_warmup > 0:
         guard_at = {math.ceil(f * num_warmup) - 1 for f in (0.25, 0.5, 0.75)}
+    total = num_warmup + num_samples
+    run_id = {"nchains": nchains, "dim": dim, "num_warmup": num_warmup,
+              "num_samples": num_samples, "max_depth": max_depth,
+              "target_accept": float(target_accept), "dense_mass": bool(dense_mass),
+              "pool_warmup": bool(pool_warmup)}
 
-    z = u0s.clone()
-    logp, grad = vg(z)
-    da, wf = da_init(step0), wf_init()
-    samples = torch.empty(nchains, num_samples, dim, dtype=dtype, device=device)
-    logps = torch.empty(nchains, num_samples, dtype=dtype, device=device)
-    accept = torch.empty_like(logps)
-    steps = torch.empty(nchains, num_samples, dtype=torch.int64, device=device)
-    divs = torch.empty(nchains, num_samples, dtype=torch.bool, device=device)
+    if state_path is not None and sampler_state_exists(state_path):
+        st = load_sampler_state(state_path, device)
+        if st["run_id"] != run_id:
+            raise ValueError(
+                f"the sampler state at {state_path} is of another run: {st['run_id']} "
+                f"against {run_id}"
+            )
+        start = st["next"]
+        z, logp, grad, da, wf, inv_mass = st["carry"]
+        samples, logps, accept, steps, divs = st["buffers"]
+        for g, gs in zip(gens, st["generators"]):
+            g.set_state(torch.from_numpy(gs))
+    else:
+        start = 0
+        xi0 = torch.stack([torch.randn(dim, generator=g, dtype=torch.float64) for g in gens])
+        step0 = find_reasonable_step_size(vg, u0s, xi0.to(device=device, dtype=dtype), inv_mass)
+        z = u0s.clone()
+        logp, grad = vg(z)
+        da, wf = da_init(step0), wf_init()
+        samples = torch.empty(nchains, num_samples, dim, dtype=dtype, device=device)
+        logps = torch.empty(nchains, num_samples, dtype=dtype, device=device)
+        accept = torch.empty_like(logps)
+        steps = torch.empty(nchains, num_samples, dtype=torch.int64, device=device)
+        divs = torch.empty(nchains, num_samples, dtype=torch.bool, device=device)
 
-    for i in range(num_warmup + num_samples):
+    for i in range(start, total):
         warm = i < num_warmup
         step_size = torch.exp(da.log_step if warm else da.log_step_avg)
         noise = draw_noise(gens, dim, max_depth, device)
@@ -471,8 +506,16 @@ def nuts_chains(
             k = i - num_warmup
             samples[:, k], logps[:, k] = z, logp
             accept[:, k], steps[:, k], divs[:, k] = stats.accept_prob, stats.num_steps, stats.diverging
+        carry = (z, logp, grad, da, wf, inv_mass)
+        if state_path is not None and ((i + 1) % save_every == 0 or i + 1 == total):
+            save_sampler_state(
+                {"run_id": run_id, "next": i + 1, "carry": carry,
+                 "buffers": (samples, logps, accept, steps, divs),
+                 "generators": [g.get_state().numpy() for g in gens]},
+                state_path,
+            )
         if callback is not None:
-            callback(i, (z, logp, grad, da, wf, inv_mass))
+            callback(i, carry)
 
     return NUTSResult(
         samples=samples, logp=logps, accept_prob=accept, num_steps=steps, diverging=divs,

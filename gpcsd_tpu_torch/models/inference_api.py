@@ -1,10 +1,11 @@
 """High-level posterior inference API of the model classes.
 
-Counterpart of ``gpcsd_tpu.models.inference_api``: NUTS over the
-hyperparameters on the model's log-joint, returning *constrained* per-name
-samples so downstream analysis never touches the unconstrained space, and
-the Laplace (MAP-Hessian) whitening that makes the 30-dimensional paper
-posterior samplable.
+Counterpart of ``gpcsd_tpu.models.inference_api``: NUTS, ADVI and SMC over
+the hyperparameters on the model's log-joint, returning *constrained*
+per-name samples so downstream analysis never touches the unconstrained
+space, the Laplace (MAP-Hessian) whitening that makes the 30-dimensional
+paper posterior samplable, and WAIC / PSIS-LOO over a stored posterior.
+The multi-chip ``mesh`` routes of the JAX mixin have no counterpart.
 """
 
 from __future__ import annotations
@@ -14,16 +15,20 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
+from ..infer import model_comparison as mc
+from ..infer.advi import advi_fit
 from ..infer.diagnostics import ess_bulk, ess_tail, rhat
 from ..infer.nuts import chain_generators, nuts_chains
+from ..infer.smc import smc_run
 from .core import ModelFns, value_and_grad_rows
+from .reparam import AmplitudeReparam
 
 
 class PosteriorSamples(NamedTuple):
     """Posterior over hyperparameters in constrained (natural) units."""
 
     theta: Dict[str, np.ndarray]  # name -> (nsamples[, size]) samples
-    raw: object  # the sampler's NUTSResult (samples in unconstrained u)
+    raw: object  # the engine's NUTSResult / ADVIResult / SMCResult (in unconstrained u)
     diagnostics: Dict[str, np.ndarray]
 
 
@@ -80,19 +85,33 @@ def whitening_from_hessian(H):
     return A, A_inv
 
 
-def _laplace_maps(fns, u_center, Y, H):
+def _laplace_maps(fns, u_center, Y, H, J=None):
     """``(A, A_inv)`` of the whitening at ``u_center``: from the precomputed
     ``H`` (array or ``.npz`` path), or from :func:`laplace_hessian` when
-    ``H`` is None."""
+    ``H`` is None.  With ``J = du/dr`` at the centre the u-space Hessian is
+    pulled back to the reparameterized space as ``J^T H J`` (the transform
+    is unimodular, so there is no log-det curvature term, and the gradient
+    term vanishes at the mode to the order the Laplace whitening assumes)."""
     if H is None:
         H = laplace_hessian(fns, u_center, Y)
     else:
         H = load_hessian(H, u_center.shape[0])
-    return whitening_from_hessian(0.5 * (H + H.T))
+    H = 0.5 * (H + H.T)
+    if J is not None:
+        H = J.T @ H @ J
+    return whitening_from_hessian(H)
+
+
+def _generator(seed, k):
+    """A CPU ``torch.Generator`` seeded from ``(seed, k)``: stream ``k`` of
+    an entry point's random numbers."""
+    state = np.random.SeedSequence([seed, k]).generate_state(1, dtype=np.uint64)[0]
+    return torch.Generator().manual_seed(int(state >> np.uint64(1)))
 
 
 class InferenceAPIMixin:
-    """Mixin adding ``sample_posterior`` to model classes.
+    """Mixin adding ``sample_posterior``, ``advi``, ``smc`` and
+    ``information_criteria`` to model classes.
 
     Host classes provide ``_fns(fix_R=...)``, ``_Y()``, ``_theta()``,
     ``_set_theta(theta)`` and ``device``.
@@ -102,6 +121,23 @@ class InferenceAPIMixin:
         """(N, dim) unconstrained -> dict of (N,) or (N, size) numpy arrays."""
         theta = fns.param_set.unpack(torch.as_tensor(u_batch, dtype=torch.float64))
         return {k: v.numpy() for k, v in theta.items()}
+
+    def _pack_batch(self, fns, theta):
+        """Dict of (N,) or (N, size) constrained numpy arrays -> (N, dim)
+        unconstrained; the inverse of :meth:`_constrain_batch`."""
+        ps = fns.param_set
+        return np.concatenate([
+            np.log(np.asarray(theta[name], dtype=np.float64).reshape(
+                -1, ps.specs[name].size) / ps.specs[name].scale)
+            for name in ps.names
+        ], axis=1)
+
+    def _prior_starts(self, fns, seed, n):
+        """(n, dim) prior draws in u clipped into the parameter box, from
+        ``numpy.random.default_rng([seed, 0])``."""
+        rng = np.random.default_rng([seed, 0])
+        u = np.stack([fns.param_set.pack(fns.param_set.sample(rng)).numpy() for _ in range(n)])
+        return fns.param_set.clip_to_bounds(torch.as_tensor(u)).numpy()
 
     def sample_posterior(
         self,
@@ -119,6 +155,9 @@ class InferenceAPIMixin:
         laplace=True,
         laplace_hessian=None,
         dense_mass=False,
+        reparam=None,
+        state_path=None,
+        save_every=1,
     ) -> PosteriorSamples:
         """NUTS posterior over hyperparameters, chains batched on the
         model's device.
@@ -149,6 +188,17 @@ class InferenceAPIMixin:
             (Stan's dense_e) instead of the diagonal one.  Composes with
             ``laplace``: whitening supplies the static linear map, the
             dense metric learns the residual correlations.
+        :param reparam: ``"amplitude"`` samples in coordinates where the
+            model's mean per-channel LFP signal variance is an axis
+            (:mod:`gpcsd_tpu_torch.models.reparam`), removing the curved
+            forward-amplitude ridge at the source.  The map is a
+            closed-form unimodular bijection, so the sampled density needs
+            no Jacobian correction; whitening and the dense metric compose
+            on top.
+        :param state_path: checkpoint file stem: the sampler saves its
+            state there every ``save_every`` transitions, before
+            ``callback`` runs, and a rerun with the same arguments
+            continues from it with the same draws bit for bit.
         """
         fns = self._fns(fix_R=fix_R)
         Y = self._Y()
@@ -156,38 +206,62 @@ class InferenceAPIMixin:
         u_center = fns.param_set.pack(self._theta()).cpu().numpy()
         dim = u_center.shape[0]
 
+        def on_device(fn):
+            """A map on (..., dim) tensors as a map on numpy rows."""
+            def wrapped(a):
+                with torch.no_grad():
+                    out = fn(torch.as_tensor(a, dtype=f64, device=dev).reshape(-1, dim))
+                return out.cpu().numpy().reshape(np.shape(a))
+            return wrapped
+
+        if reparam == "amplitude":
+            rp = AmplitudeReparam(fns)
+            from_r_t = rp.inverse
+            to_r, from_r = on_device(rp.forward), on_device(rp.inverse)
+        elif reparam:
+            raise ValueError(f"unknown reparam {reparam!r}")
+        else:
+            rp = None
+            to_r = from_r = from_r_t = lambda x: x  # noqa: E731
+        center = to_r(u_center)
+
         if laplace:
-            A, A_inv = _laplace_maps(fns, u_center, Y, laplace_hessian)
+            J = None
+            if rp is not None:
+                J = torch.autograd.functional.jacobian(
+                    rp.inverse, torch.as_tensor(center, dtype=f64, device=dev)
+                ).cpu().numpy()
+            A, A_inv = _laplace_maps(fns, u_center, Y, laplace_hessian, J)
         else:
             A = A_inv = np.eye(dim)
 
-        # u = u_center + A v (A symmetric); identity maps when not whitened
+        # u = from_r(center + A v) (A symmetric); identity maps when neither
+        # whitened nor reparameterized
         def from_u(u):
-            return (u - u_center) @ A_inv
+            return (to_r(u) - center) @ A_inv
 
         def to_u(v):
-            return u_center + v @ A
+            return from_r(center + v @ A)
 
-        rng = np.random.default_rng([seed, 0])
         if init == "params_jitter":
             # in whitened space the posterior sd is ~1, so unit-scale
             # jitter gives properly overdispersed starts; unwhitened falls
             # back to small u-space jitter
             scale = 1.0 if laplace else 0.05
-            u0s = to_u(scale * rng.standard_normal((n_chains, dim)))
+            rng = np.random.default_rng([seed, 0])
+            # keep starts inside the parameter box (clip in u-space)
+            u0s = fns.param_set.clip_to_bounds(torch.as_tensor(
+                to_u(scale * rng.standard_normal((n_chains, dim))))).numpy()
         elif init == "prior":
-            u0s = np.stack([
-                fns.param_set.pack(fns.param_set.sample(rng)).numpy() for _ in range(n_chains)
-            ])
+            u0s = self._prior_starts(fns, seed, n_chains)
         else:
             raise ValueError(f"unknown init {init!r}")
-        # keep starts inside the parameter box (clip in u-space)
-        v0s = from_u(fns.param_set.clip_to_bounds(torch.as_tensor(u0s)).numpy())
+        v0s = from_u(u0s)
 
         A_t = torch.as_tensor(A, dtype=f64, device=dev)
-        c_t = torch.as_tensor(u_center, dtype=f64, device=dev)
+        c_t = torch.as_tensor(center, dtype=f64, device=dev)
         res = nuts_chains(
-            lambda v: fns.log_prob(c_t + v @ A_t, Y),
+            lambda v: fns.log_prob(from_r_t(c_t + v @ A_t), Y),
             torch.as_tensor(v0s, dtype=f64, device=dev),
             chain_generators(seed, n_chains),
             num_warmup=num_warmup,
@@ -197,9 +271,14 @@ class InferenceAPIMixin:
             pool_warmup=pool_warmup,
             callback=callback,
             dense_mass=dense_mass,
+            state_path=state_path,
+            save_every=save_every,
         )
-        # map whitened samples back to u-space
-        res = res._replace(samples=c_t + res.samples @ A_t)
+        # map the samples back to u-space: linear when only whitened, through
+        # the nonlinear inverse when reparameterized
+        with torch.no_grad():
+            r = (c_t + res.samples @ A_t).reshape(-1, dim)
+            res = res._replace(samples=from_r_t(r).reshape(res.samples.shape))
 
         samples = res.samples.cpu().numpy()
         flat = samples.reshape(-1, dim)
@@ -221,3 +300,78 @@ class InferenceAPIMixin:
             theta=self._constrain_batch(fns, flat), raw=res, diagnostics=diagnostics
         )
         return self.posterior
+
+    def advi(self, num_steps=3000, n_mc=8, learning_rate=0.02, seed=0, fix_R=False,
+             n_draws=1000) -> PosteriorSamples:
+        """Mean-field ADVI posterior approximation, started at a prior draw
+        clipped into the parameter box."""
+        fns = self._fns(fix_R=fix_R)
+        Y = self._Y()
+        u0 = torch.as_tensor(self._prior_starts(fns, seed, 1)[0], device=self.device)
+        res = advi_fit(
+            lambda u: fns.log_prob(u, Y), u0, _generator(seed, 1),
+            num_steps=num_steps, n_mc=n_mc, learning_rate=learning_rate,
+        )
+        draws = res.sample(_generator(seed, 2), n_draws).cpu().numpy()
+        self.posterior = PosteriorSamples(
+            theta=self._constrain_batch(fns, draws),
+            raw=res,
+            diagnostics={"elbo": res.elbo_trace.cpu().numpy()},
+        )
+        return self.posterior
+
+    def smc(self, n_particles=1024, n_mutation_steps=10, seed=0, fix_R=False,
+            batch=64) -> PosteriorSamples:
+        """Adaptive tempered SMC posterior (prior -> posterior).
+
+        :param batch: particles per batched evaluation of the prior and
+            the likelihood (bounds the memory of the batched factors).
+        """
+        fns = self._fns(fix_R=fix_R)
+        Y = self._Y()
+        particles0 = torch.as_tensor(self._prior_starts(fns, seed, n_particles), device=self.device)
+        res = smc_run(
+            fns.log_prior_u,
+            lambda u: fns.loglik(fns.param_set.unpack(u), Y),
+            particles0, _generator(seed, 1),
+            n_mutation_steps=n_mutation_steps, chunk=batch,
+        )
+        self.posterior = PosteriorSamples(
+            theta=self._constrain_batch(fns, res.particles.cpu().numpy()),
+            raw=res,
+            diagnostics={
+                "log_evidence": res.log_evidence.cpu().numpy(),
+                "n_stages": np.asarray(res.n_stages),
+                "acceptance": res.acceptance.cpu().numpy(),
+            },
+        )
+        return self.posterior
+
+    def information_criteria(self, method="both", max_draws=256, seed=0, batch=8, fix_R=False):
+        """Fully-Bayesian model comparison criteria over the stored
+        posterior: WAIC and/or PSIS-LOO with per-trial pointwise terms
+        (:mod:`gpcsd_tpu_torch.infer.model_comparison`).  Run
+        ``sample_posterior`` / ``advi`` / ``smc`` first; works with any of
+        them because it reconstructs unconstrained draws from the
+        constrained ``posterior.theta`` dict.
+
+        :param method: ``"waic"``, ``"loo"``, or ``"both"``.
+        :param max_draws: posterior draws used (subsampled without
+            replacement: pointwise likelihood is O(draws * ntrials)).
+        :returns: dict with keys among {"waic", "loo"}; LOO includes the
+            per-trial Pareto k-hat reliability diagnostic.
+        """
+        if getattr(self, "posterior", None) is None:
+            raise RuntimeError("no posterior stored: run sample_posterior/advi/smc first")
+        fns = self._fns(fix_R=fix_R)
+        us = self._pack_batch(fns, self.posterior.theta)
+        n = us.shape[0]
+        if n > max_draws:
+            us = us[np.random.default_rng(seed).choice(n, max_draws, replace=False)]
+        ll = mc.pointwise_loglik(fns, us, self._Y(), batch=batch)
+        out = {"n_draws": int(us.shape[0])}
+        if method in ("waic", "both"):
+            out["waic"] = mc.waic(ll)
+        if method in ("loo", "both"):
+            out["loo"] = mc.psis_loo(ll)
+        return out

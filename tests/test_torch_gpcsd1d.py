@@ -67,13 +67,17 @@ class TestPackage:
             "gpcsd_tpu_torch.infer.nuts, gpcsd_tpu_torch.infer.diagnostics, "
             "gpcsd_tpu_torch.models.inference_api, gpcsd_tpu_torch.models.gpcsd2d, "
             "gpcsd_tpu_torch.infer.lbfgs, gpcsd_tpu_torch.infer.map, gpcsd_tpu_torch.ops.rff, "
-            "gpcsd_tpu_torch.ops.spatial, gpcsd_tpu_torch.ops.forward, gpcsd_tpu_torch.utils.grids; "
-            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gpcsd_tpu')))"
+            "gpcsd_tpu_torch.ops.spatial, gpcsd_tpu_torch.ops.forward, gpcsd_tpu_torch.utils.grids, "
+            "gpcsd_tpu_torch.io, gpcsd_tpu_torch.io.checkpoint, gpcsd_tpu_torch.paper_run, "
+            "gpcsd_tpu_torch.infer.advi, gpcsd_tpu_torch.infer.smc, "
+            "gpcsd_tpu_torch.infer.model_comparison, gpcsd_tpu_torch.models.reparam; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'gpcsd_tpu', 'optax', 'orbax')))"
         )
         out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                              cwd=ROOT, check=True).stdout
         assert out.strip() == "[]"
-        pat = re.compile(r"^\s*(import|from)\s+(jax|gpcsd_tpu)\b", re.M)
+        pat = re.compile(r"^\s*(import|from)\s+(jax|gpcsd_tpu|optax|orbax)\b", re.M)
         for dirpath, dirs, files in os.walk(os.path.join(ROOT, "gpcsd_tpu_torch")):
             dirs[:] = [d for d in dirs if d != "_build"]  # build outputs, not sources
             for name in files:

@@ -16,8 +16,11 @@ import gpcsd_tpu_torch as gt
 from gpcsd_tpu.infer import diagnostics as jd
 from gpcsd_tpu_torch import convert
 from gpcsd_tpu_torch.infer import diagnostics as td
+from gpcsd_tpu_torch.infer.advi import ADVIResult
 from gpcsd_tpu_torch.infer.nuts import NUTSResult
+from gpcsd_tpu_torch.infer.smc import SMCResult
 from gpcsd_tpu_torch.models.core import value_and_grad_rows
+from torch_port_helpers import jax_small_model, port_of
 from gpcsd_tpu_torch.models.inference_api import (
     PosteriorSamples,
     laplace_hessian,
@@ -27,34 +30,6 @@ from gpcsd_tpu_torch.models.inference_api import (
 torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def jax_small_model(het_noise="approx", per_channel=False, seed=42):
-    """The small model of ``tests/test_inference_api.py``."""
-    rng = np.random.default_rng(seed)
-    nx, nt, ntrials = 6, 10, 4
-    x = (np.arange(nx) * 100.0).reshape(-1, 1)
-    t = np.arange(nt).reshape(-1, 1) * 1.0
-    lfp = rng.normal(size=(nx, nt, ntrials)) * 0.5
-    kw = {"sig2n_prior": [g.HalfNormal(0.1) for _ in range(nx)]} if per_channel else {}
-    m = g.GPCSD1D(lfp, x, t, ngl=20, het_noise=het_noise, **kw)
-    m.R["value"] = 120.0
-    m.spatial_cov.params["ell"]["value"] = 180.0
-    m.temporal_cov_list[0].params["ell"]["value"] = 4.0
-    m.temporal_cov_list[0].params["sigma2"]["value"] = 0.5
-    m.temporal_cov_list[1].params["ell"]["value"] = 1.5
-    m.temporal_cov_list[1].params["sigma2"]["value"] = 0.3
-    m.sig2n["value"] = rng.uniform(0.05, 0.15, size=nx) if per_channel else 0.1
-    return m
-
-
-def port_of(jm):
-    prior = jm.sig2n["prior"]
-    prior = [gt.HalfNormal(p.sd) for p in prior] if isinstance(prior, list) else gt.HalfNormal(prior.sd)
-    return convert.model_from_reference_params(
-        jm.lfp, jm.x, jm.t, {k: np.asarray(v) for k, v in jm._theta().items()},
-        a=jm.a, b=jm.b, ngl=jm.ngl, sig2n_prior=prior, het_noise=jm.het_noise, device="cpu",
-    )
 
 
 @pytest.fixture
@@ -249,12 +224,93 @@ def test_set_posterior_mean(small_model):
 def test_unknown_keywords_raise(small_model):
     """Arguments of the JAX ``sample_posterior`` that the port does not
     take are absent, not accepted and ignored."""
-    for kw in ({"mesh": None}, {"chunk_size": 10}, {"state_path": "x"}, {"reparam": "amplitude"},
-               {"warm_basis": True}, {"precondition": True}, {"save_every": 2}):
+    for kw in ({"mesh": None}, {"chunk_size": 10}, {"warm_basis": True}, {"precondition": True}):
         with pytest.raises(TypeError):
             small_model.sample_posterior(n_chains=1, num_warmup=1, num_samples=1, **kw)
-    for name in ("advi", "smc", "information_criteria"):
-        assert not hasattr(small_model, name)
+    for name in ("advi", "smc"):
+        with pytest.raises(TypeError):
+            getattr(small_model, name)(mesh=None)
+
+
+# ------------------------------------- advi, smc, information_criteria
+
+
+def _same_layout(got, want):
+    """Same names and shapes in ``theta`` and ``diagnostics``."""
+    assert set(got.theta) == set(want.theta)  # jax.vmap returns the dict sorted
+    for k in want.theta:
+        assert got.theta[k].shape == np.asarray(want.theta[k]).shape, k
+        assert np.isfinite(got.theta[k]).all() and (got.theta[k] > 0).all()
+    assert got.diagnostics.keys() == want.diagnostics.keys()
+    for k in want.diagnostics:
+        assert np.shape(got.diagnostics[k]) == np.shape(want.diagnostics[k]), k
+
+
+def test_advi_returns_the_jax_layout():
+    jm = jax_small_model("exact", True)
+    tm = port_of(jm)
+    kw = dict(num_steps=40, n_mc=4, n_draws=50, seed=1)
+    got, want = tm.advi(**kw), jm.advi(**kw)
+    assert got is tm.posterior and isinstance(got.raw, ADVIResult)
+    _same_layout(got, want)
+    assert got.theta["sig2n"].shape == (50, 6) and got.diagnostics["elbo"].shape == (40,)
+    assert got.raw.mu.shape == (12,) and np.isfinite(got.diagnostics["elbo"]).any()
+    # the seed decides the draws
+    np.testing.assert_array_equal(tm.advi(**kw).theta["R"], got.theta["R"])
+    assert not np.array_equal(tm.advi(**{**kw, "seed": 2}).theta["R"], got.theta["R"])
+    assert "R" not in tm.advi(fix_R=True, **kw).theta
+
+
+def test_smc_returns_the_jax_layout():
+    jm = jax_small_model()
+    tm = port_of(jm)
+    kw = dict(n_particles=48, n_mutation_steps=2, seed=0)
+    got, want = tm.smc(batch=20, **kw), jm.smc(**kw)
+    assert got is tm.posterior and isinstance(got.raw, SMCResult)
+    _same_layout(got, want)
+    assert got.theta["R"].shape == (48,) and got.raw.particles.shape == (48, 7)
+    assert np.isfinite(got.diagnostics["log_evidence"]) and got.diagnostics["n_stages"] >= 1
+    assert 0.0 <= float(got.diagnostics["acceptance"]) <= 1.0
+    assert float(got.raw.temperatures[-1]) == 1.0
+    # the two packages temper the same posterior from their own prior draws:
+    # evidence within a few log-units at 48 particles
+    assert abs(float(got.diagnostics["log_evidence"]) - float(want.diagnostics["log_evidence"])) < 10.0
+
+
+@pytest.mark.parametrize("engine", ["nuts", "advi"])
+def test_information_criteria_returns_the_jax_layout(engine):
+    """WAIC and PSIS-LOO over either engine's stored posterior: the JAX
+    dict's keys and shapes, and on the SAME posterior draws the same numbers
+    to 1e-8 (the draws are handed to the JAX model as its posterior)."""
+    jm = jax_small_model("exact", True)
+    tm = port_of(jm)
+    if engine == "nuts":
+        tm.sample_posterior(n_chains=2, num_warmup=20, num_samples=30, seed=0, max_depth=4)
+    else:
+        tm.advi(num_steps=40, n_mc=4, n_draws=60, seed=0)
+    jm.posterior = tm.posterior
+    got, want = tm.information_criteria(max_draws=40, batch=16), jm.information_criteria(max_draws=40)
+    assert got.keys() == want.keys() == {"n_draws", "waic", "loo"} and got["n_draws"] == 40
+    for name in ("waic", "loo"):
+        assert got[name].keys() == want[name].keys()
+        for k, v in want[name].items():
+            assert np.shape(got[name][k]) == np.shape(v)
+            np.testing.assert_allclose(got[name][k], v, rtol=1e-8, atol=1e-8, err_msg=k)
+    assert got["loo"]["pareto_k"].shape == (4,)
+    assert tm.information_criteria(method="waic").keys() == {"n_draws", "waic"}
+    assert tm.information_criteria(method="loo", max_draws=1000)["n_draws"] == 60
+
+
+def test_information_criteria_without_posterior_raises(small_model):
+    with pytest.raises(RuntimeError, match="no posterior stored"):
+        small_model.information_criteria()
+
+
+def test_pack_batch_inverts_constrain_batch(small_model):
+    fns = small_model._fns()
+    us = np.random.default_rng(0).normal(size=(5, 7))
+    np.testing.assert_allclose(
+        small_model._pack_batch(fns, small_model._constrain_batch(fns, us)), us, atol=1e-13)
 
 
 # ---------------------------------------------------------- state across

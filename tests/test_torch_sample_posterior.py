@@ -7,39 +7,9 @@ the comparison is by moments with stated Monte-Carlo tolerances).
 import numpy as np
 import torch
 
-import gpcsd_tpu as g
-import gpcsd_tpu_torch as gt
-from gpcsd_tpu_torch import convert
+from torch_port_helpers import jax_small_model, port_of
 
 torch.set_num_threads(2)
-
-
-def jax_small_model(het_noise="approx", per_channel=False, seed=42):
-    """The small model of ``tests/test_inference_api.py``."""
-    rng = np.random.default_rng(seed)
-    nx, nt, ntrials = 6, 10, 4
-    x = (np.arange(nx) * 100.0).reshape(-1, 1)
-    t = np.arange(nt).reshape(-1, 1) * 1.0
-    lfp = rng.normal(size=(nx, nt, ntrials)) * 0.5
-    kw = {"sig2n_prior": [g.HalfNormal(0.1) for _ in range(nx)]} if per_channel else {}
-    m = g.GPCSD1D(lfp, x, t, ngl=20, het_noise=het_noise, **kw)
-    m.R["value"] = 120.0
-    m.spatial_cov.params["ell"]["value"] = 180.0
-    m.temporal_cov_list[0].params["ell"]["value"] = 4.0
-    m.temporal_cov_list[0].params["sigma2"]["value"] = 0.5
-    m.temporal_cov_list[1].params["ell"]["value"] = 1.5
-    m.temporal_cov_list[1].params["sigma2"]["value"] = 0.3
-    m.sig2n["value"] = rng.uniform(0.05, 0.15, size=nx) if per_channel else 0.1
-    return m
-
-
-def port_of(jm):
-    prior = jm.sig2n["prior"]
-    prior = [gt.HalfNormal(p.sd) for p in prior] if isinstance(prior, list) else gt.HalfNormal(prior.sd)
-    return convert.model_from_reference_params(
-        jm.lfp, jm.x, jm.t, {k: np.asarray(v) for k, v in jm._theta().items()},
-        a=jm.a, b=jm.b, ngl=jm.ngl, sig2n_prior=prior, het_noise=jm.het_noise, device="cpu",
-    )
 
 
 def test_moments_invariant_under_whitening():
