@@ -13,8 +13,11 @@ path (construct -> loglik -> L-BFGS batched over restarts on the card ->
 predict -> predict_variance -> predict_samples -> sample_prior) runs at the
 Neuropixels shape (``gpcsd_tpu_torch.paper.neuropixels_problem``): GPCSD2D,
 nx=69 on the staggered 4-column geometry, nt=375, 100 trials, a 30 x 120
-quadrature rule (3600 nodes), eps=1, scalar noise, 8 parameters.  Phases,
-one JSON line each:
+quadrature rule (3600 nodes), eps=1, scalar noise, 8 parameters.  After
+them, the paper's analysis stages (band-pass phases, torus graph and its
+bootstrap, per-trial shifts) and the twins of the ``auditory_lfp`` and
+``fit_mean_function`` workloads run at those workloads' full width.
+Phases, one JSON line each:
 
 1. device: torch/CUDA versions and the card's name and power limit;
 2. build: compile ``gpcsd_tpu_torch/csrc/quadform.cu`` for sm_90a; print
@@ -73,11 +76,30 @@ one JSON line each:
    function behind ``scripts/torch_paper_nuts_run.py``) at short lengths,
    three times: stopped by ``--max-seconds`` (exit code 3), finished from
    the saved state, and uninterrupted on the same cached inputs; the two
-   sets of draws are equal bit for bit and the artifact holds every key.
+   sets of draws are equal bit for bit and the artifact holds every key;
+20. signal: the auditory twin's two surrogate probes at full width (24
+   channels, 400 samples, 60 trials), models restored by its ``fit_probe``
+   from a pickle of fixed parameters, CSD and LFP predicted on the 199-sample
+   trial window; ``bandpass_filtfilt`` 8-12 Hz, ``instantaneous_phase``,
+   ``plv_matrix``, ``periodogram``: ms per call, card vs scipy and vs the
+   port on the CPU, phases through exp(i phi);
+21. torus: a well-posed torus graph (d=8, n=4000) and the auditory one on
+   the signal phase's phases (d=48, n=60), card vs CPU; the bootstrap of
+   200 replicates at d=48: ms per replicate, peak memory, replicates vs the
+   fit on their trials;
+22. shifts: ``estimate_shifts`` at fit_mean_function's default shape from
+   one model fitted on the card: card vs CPU, launches against the
+   optimizer's count of evaluations;
+23. workloads: both workload twins' ``run()`` on the card at full width
+   (restarts cut to 3): seconds per stage, the JAX tests' thresholds,
+   launches by shape;
+24. timing_analysis: the kernel vs its plain version at the three shapes
+   the analysis stages give it (device time, CUDA graph of 50 calls).
 
 The quadform launch count is set to 0 before each stretch of the main path
 (log_prob + fit, hessian, nuts, log_prob_2d, fit_2d, reparam, advi, smc, ic,
-paper_run) and read after it;
+paper_run, the shifts phase's fit and its shift stage, workloads) and read
+after it;
 ``predict`` and the other outputs solve with the factors and launch no
 kernel.  Any failure raises and the script
 exits non-zero.  Without CUDA, or run outside a checkout of the repository,
@@ -105,8 +127,12 @@ PEAK_FP64_TENSOR_FLOPS = 67e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 #: the shapes the two main paths give the kernel: (nx, nt, ntrials)
 SHAPE_1D, SHAPE_2D = (24, 600, 100), (69, 375, 100)
+#: the shapes the analysis stages give it: the auditory twin's fit (200
+#: baseline samples of 400, 60 trials), fit_mean_function's fit and its
+#: shift stage (one trial per launch)
+SHAPE_AUD, SHAPE_FMF, SHAPE_SHIFT = (24, 200, 60), (24, 60, 40), (24, 60, 1)
 KERNEL_SHAPES = [
-    SHAPE_1D, SHAPE_2D, (7, 129, 3), (69, 375, 5),
+    SHAPE_1D, SHAPE_2D, SHAPE_AUD, SHAPE_FMF, SHAPE_SHIFT, (7, 129, 3), (69, 375, 5),
     (24, 600, 1), (24, 601, 7), (130, 64, 2), (811, 16, 1), (1000, 16, 1), (1, 8, 1),
 ]
 
@@ -883,6 +909,242 @@ def profile_2d(gpu, evals=20):
             "top_kernels_us_per_eval": [[k[:60], v / evals, c / evals] for k, v, c in top]}
 
 
+# ------------------------------------------------ the paper's analysis stages
+
+#: parameters the signal phase restores into the auditory twin's models in
+#: place of a fit (the surrogate generator's values, noise 0.01)
+SIGNAL_PARAMS = {"R": 150.0, "sig2n": np.full(24, 0.01), "spatial_ell": 300.0,
+                 "temporal_ell_list": [40.0, 5.0], "temporal_sigma2_list": [1.0, 0.5]}
+#: auditory torus graph (d = 48 from n = 60 trials, 2256 parameters held up
+#: by the ridge alone), card vs CPU, relative to the largest magnitude.
+#: H100 readings: phi 3.3e-14, partial PLV 2.8e-13; each limit 6-7x that
+TOL_TORUS_AUDITORY = {"phi": 2e-13, "cond_coupling": 2e-12}
+#: workloads phase: the JAX workloads' defaults cut to keep the phase short
+AUD_RESTARTS, FMF_RESTARTS = 3, 3
+
+
+def sync_seconds(fn):
+    """(result, wall seconds) of ``fn()`` with the device synchronised at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def auditory_predictions(dev, tmp):
+    """The auditory twin's two surrogate probes at full width (24 channels,
+    400 samples, 60 trials), each model restored from a pickle of
+    :data:`SIGNAL_PARAMS` by the twin's ``fit_probe``, and its CSD and LFP
+    predictions on the trial window as (trials, channels, samples) tensors."""
+    import pickle
+
+    from gpcsd_tpu_torch.workloads import auditory_lfp as aud
+
+    out = {}
+    for name, (lfp, time_ms) in aud.surrogate(0, 400, 60, device=dev).items():
+        cache = os.path.join(tmp, f"gpcsd_model_{name}.pkl")
+        with open(cache, "wb") as f:
+            pickle.dump(SIGNAL_PARAMS, f)
+        base = time_ms < 0
+        model = aud.fit_probe(lfp[:, base, :], time_ms[base], cache=cache, device=dev)
+        trial = (time_ms >= 0) & (time_ms < min(500.0, time_ms.max()))
+        model.update_lfp(lfp[:, trial, :], time_ms[trial].reshape(-1, 1))
+        pred = model.predict_tensors(np.linspace(aud.A, aud.B, aud.NX), time_ms[trial], type="both")
+        out[name] = (pred["csd"][0], pred["lfp"][0])
+    return out
+
+
+def phase_signal(dev, smi):
+    """The signal functions at the auditory window on the CSD and LFP
+    predictions: card vs scipy (1e-10 of the largest magnitude), card vs the
+    port on the CPU (1e-12), phases as |exp(i phi) - exp(i phi')| <= 1e-9.
+    Returns the CSD phases at the window's midpoint, (48, 60), lateral then
+    medial."""
+    import scipy.signal as ss
+
+    from gpcsd_tpu_torch import signal as tsig
+
+    tmp = tempfile.mkdtemp(prefix="signal_")
+    try:
+        preds = auditory_predictions(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    sos = tsig.butter_bandpass_sos(8.0, 12.0, 1000.0, order=4)
+    errs = {"scipy": 0.0, "cpu": 0.0, "phase_scipy": 0.0, "phase_cpu": 0.0}
+    ms = {}
+    phases = []
+    for name, (csd, lfp) in preds.items():
+        for kind, x in (("csd", csd), ("lfp", lfp)):
+            xn = x.cpu().numpy()
+            filt = tsig.bandpass_filtfilt(x, 8.0, 12.0, 1000.0, device=dev)
+            ph = tsig.instantaneous_phase(filt, device=dev)
+            f, pxx = tsig.periodogram(x, fs=1000.0, device=dev)
+            want_filt = ss.sosfiltfilt(sos, xn, axis=-1)
+            want_ph = np.angle(ss.hilbert(want_filt, axis=-1))
+            _, want_pxx = ss.periodogram(xn, fs=1000.0, axis=-1)
+            cpu_filt = tsig.bandpass_filtfilt(xn, 8.0, 12.0, 1000.0, device="cpu")
+            cpu_ph = tsig.instantaneous_phase(cpu_filt, device="cpu").numpy()
+            errs["scipy"] = max(errs["scipy"], max_rel(filt.cpu().numpy(), want_filt),
+                                max_rel(tsig.hilbert(filt, device=dev).cpu().numpy(),
+                                        ss.hilbert(want_filt, axis=-1)),
+                                max_rel(pxx.cpu().numpy(), want_pxx))
+            errs["cpu"] = max(errs["cpu"], max_rel(filt.cpu().numpy(), cpu_filt.numpy()))
+            phn = ph.cpu().numpy()
+            errs["phase_scipy"] = max(errs["phase_scipy"],
+                                      float(np.abs(np.exp(1j * phn) - np.exp(1j * want_ph)).max()))
+            errs["phase_cpu"] = max(errs["phase_cpu"],
+                                    float(np.abs(np.exp(1j * phn) - np.exp(1j * cpu_ph)).max()))
+            if kind == "csd":
+                phases.append(ph[:, :, ph.shape[-1] // 2].T)  # (channels, trials)
+        if not ms:
+            ms = {"bandpass_filtfilt": cuda_ms(lambda: tsig.bandpass_filtfilt(csd, 8.0, 12.0, 1000.0,
+                                                                               device=dev), 20),
+                  "instantaneous_phase": cuda_ms(lambda: tsig.instantaneous_phase(filt, device=dev), 20),
+                  "plv_matrix": cuda_ms(lambda: tsig.plv_matrix(phases[0], device=dev), 20),
+                  "periodogram": cuda_ms(lambda: tsig.periodogram(csd, fs=1000.0, device=dev), 20)}
+    plv = tsig.plv_matrix(phases[0], device=dev)
+    plv_err = max_rel(plv.cpu().numpy(), tsig.plv_matrix(phases[0].cpu(), device="cpu").numpy())
+    emit("signal", card=smi, shape=list(csd.shape), ms=ms, rel_err=errs, plv_rel_err_vs_cpu=plv_err,
+         mean_offdiag_plv=float(plv[~torch.eye(24, dtype=torch.bool, device=dev)].mean()))
+    check(errs["scipy"] <= 1e-10, f"signal: card vs scipy {errs['scipy']}")
+    check(errs["cpu"] <= 1e-12 and plv_err <= 1e-12, f"signal: card vs CPU {errs['cpu']}, plv {plv_err}")
+    check(max(errs["phase_scipy"], errs["phase_cpu"]) <= 1e-9, f"signal: phases {errs}")
+    check(all(np.isfinite(v) for v in ms.values()), "signal: timings")
+    return torch.cat(phases)
+
+
+def phase_torus(X, dev, smi):
+    """A well-posed torus graph (Gibbs sample of a known graph, d = 8,
+    n = 4000) card vs CPU to 1e-9; the auditory fit (d = 48, n = 60) card vs
+    CPU within :data:`TOL_TORUS_AUDITORY`; the bootstrap of 200 replicates
+    at d = 48: ms per replicate, peak device memory, and its first two
+    replicates against ``torus_graph_fit`` on their trials (1e-9)."""
+    from gpcsd_tpu_torch.models import torus_graph as tg
+
+    lay = tg.layout(8)
+    phi_true = np.zeros(lay.m)
+    pairs = [tuple(p) for p in lay.pairs.tolist()]
+    for e in ((0, 1), (1, 2), (3, 4), (5, 7)):
+        phi_true[lay.diff_off + pairs.index(e)] = 1.0
+    Xw = tg.gibbs_sample(phi_true, 8, 4000, seed=1)
+    fields = ("phi", "pvals", "cond_coupling")
+    res_gpu, fit_s = sync_seconds(lambda: tg.torus_graph_fit(Xw, device=dev))
+    res_cpu = tg.torus_graph_fit(Xw, device="cpu")
+    well = {f: max_rel(getattr(res_gpu, f).cpu().numpy(), getattr(res_cpu, f).numpy()) for f in fields}
+
+    aud_gpu, aud_s = sync_seconds(lambda: tg.torus_graph_fit(X, device=dev))
+    aud_cpu = tg.torus_graph_fit(X.cpu(), device="cpu")
+    aud = {f: max_rel(getattr(aud_gpu, f).cpu().numpy(), getattr(aud_cpu, f).numpy())
+           for f in ("phi", "cond_coupling")}
+
+    nboot, n = 200, X.shape[1]
+    idx = torch.randint(0, n, (nboot, n), generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    bs, boot_s = sync_seconds(lambda: tg.bootstrap_partial_plv(X, nboot, indices=idx, device=dev))
+    peak = torch.cuda.max_memory_allocated()
+    first = max(max_rel(bs[:, r].cpu().numpy(),
+                        tg.torus_graph_fit(X[:, idx[r].to(dev)], device=dev).cond_coupling.cpu().numpy())
+                for r in (0, 1))
+    emit("torus", card=smi, well_posed={"d": 8, "n": 4000, "seconds": fit_s, "rel_err_vs_cpu": well},
+         auditory={"d": X.shape[0], "n": n, "seconds": aud_s, "rel_err_vs_cpu": aud,
+                   "limits": TOL_TORUS_AUDITORY, "max_kappa": float(aud_gpu.kappa.max()),
+                   "edges_bonf_001": int(torch.sum(aud_gpu.pvals < 0.001 / 576))},
+         bootstrap={"nboot": nboot, "batch_size": tg.BOOT_BATCH, "seconds": boot_s,
+                    "ms_per_replicate": 1e3 * boot_s / nboot, "peak_memory_bytes": peak,
+                    "memory_before_bytes": base, "first_two_rel_err_vs_fit": first,
+                    "ci_width_mean": float((torch.quantile(bs, 0.975, dim=1)
+                                            - torch.quantile(bs, 0.025, dim=1)).mean())})
+    check(max(well.values()) <= 1e-9, f"torus: well-posed card vs CPU {well}")
+    check(all(aud[f] <= TOL_TORUS_AUDITORY[f] for f in aud), f"torus: auditory card vs CPU {aud}")
+    check(bool(torch.isfinite(aud_gpu.pvals).all()), "torus: auditory p-values not finite")
+    check(tuple(bs.shape) == (tg.layout(X.shape[0]).pairs.shape[0], nboot) and bool(torch.isfinite(bs).all()),
+          "torus: bootstrap shape or values")
+    check(first <= 1e-9, f"torus: bootstrap replicates vs the fit on their trials {first}")
+
+
+def phase_shifts(qf, dev, smi):
+    """``estimate_shifts`` at fit_mean_function's default shape from one
+    model fitted on the card: tau card vs CPU to 1e-6, nll to 1e-9
+    relative, every nll finite, quadform launches = the optimizer's own
+    count of evaluations.  Returns the fit's launches and the shift
+    stage's."""
+    from gpcsd_tpu_torch.models.gpcsd1d import GPCSD1D
+    from gpcsd_tpu_torch.workloads import fit_mean_function as fmf
+
+    x, t, z, lfp, _, _ = fmf.surrogate()
+    resid = lfp - lfp.mean(axis=2, keepdims=True)
+    gpu = GPCSD1D(resid, x.reshape(-1, 1), t.reshape(-1, 1), device=dev)
+    qf.launch_count = 0
+    gpu.fit(n_restarts=FMF_RESTARTS, seed=0)
+    fit_launches = qf.launch_count
+    gpu.update_lfp(lfp.mean(axis=2, keepdims=True), t.reshape(-1, 1))
+    gpu.predict(z.reshape(-1, 1), t.reshape(-1, 1))
+    evoked_csd = gpu.csd_pred[:, :, 0]
+    cpu = GPCSD1D(resid, x.reshape(-1, 1), t.reshape(-1, 1), device="cpu")
+    cpu.restore_model_params(gpu.extract_model_params())
+
+    qf.launch_count = 0
+    qf.launches_by_shape.clear()
+    (labels, n_seg, res, _, _), seconds = sync_seconds(
+        lambda: fmf._shift_stage(gpu, lfp, resid, evoked_csd, z, x, t))
+    launches = qf.launch_count
+    by_shape = dict(qf.launches_by_shape)
+    _, _, res_cpu, _, _ = fmf._shift_stage(cpu, lfp, resid, evoked_csd, z, x, t)
+    tau_err = float(np.abs(res.tau - res_cpu.tau).max())
+    nll_err = float(np.max(np.abs(res.nll - res_cpu.nll) / np.abs(res_cpu.nll)))
+    emit("shifts", card=smi, trials=lfp.shape[2], segments=n_seg, seconds=seconds,
+         launches=launches, evaluations=int(res.n_evals.sum()),
+         evaluations_per_trial_max=int(res.n_evals.max()), converged_frac=float(res.converged.mean()),
+         tau_abs_err_vs_cpu=tau_err, nll_rel_err_vs_cpu=nll_err,
+         converged_equal_cpu=bool(np.array_equal(res.converged, res_cpu.converged)))
+    check(n_seg >= 1 and res.tau.shape == (lfp.shape[2], n_seg), f"shifts: {n_seg} segments")
+    check(np.all(np.isfinite(res.nll)), "shifts: an nll is not finite")
+    check(launches == int(res.n_evals.sum()) > 0 and by_shape == {SHAPE_SHIFT: launches},
+          f"shifts: {launches} launches ({by_shape}) for {int(res.n_evals.sum())} evaluations")
+    check(tau_err <= 1e-6 and nll_err <= 1e-9, f"shifts: card vs CPU tau {tau_err}, nll {nll_err}")
+    check(fit_launches > 0, "shifts: the fit launched no kernel")
+    return fit_launches, launches
+
+
+def phase_workloads(qf, dev, smi):
+    """Both twins' ``run()`` on the card at full width: the auditory twin at
+    400 samples and 60 trials on two 24-channel probes, fit_mean_function at
+    its defaults; restarts cut to :data:`AUD_RESTARTS` and
+    :data:`FMF_RESTARTS` (fit_mean_function's own default is 3).  Checks the
+    JAX tests' thresholds.  Returns the launches by shape."""
+    from gpcsd_tpu_torch.workloads import auditory_lfp as aud
+    from gpcsd_tpu_torch.workloads import fit_mean_function as fmf
+
+    qf.launch_count = 0
+    qf.launches_by_shape.clear()
+    t_aud, t_fmf = {}, {}
+    (m_aud, phases, tg), aud_s = sync_seconds(lambda: aud.run(
+        n_restarts=AUD_RESTARTS, nboot=10, seed=0, ntime=400, ntrials=60, device=dev, timings=t_aud))
+    (m_fmf, res, _), fmf_s = sync_seconds(lambda: fmf.run(
+        n_restarts=FMF_RESTARTS, seed=0, device=dev, timings=t_fmf))
+    by_shape = dict(qf.launches_by_shape)
+    emit("workloads", card=smi,
+         auditory_lfp={"seconds": aud_s, "stages": t_aud, "restarts": AUD_RESTARTS,
+                       "restarts_cut_from": 10, "nboot": 10, "metrics": m_aud},
+         fit_mean_function={"seconds": fmf_s, "stages": t_fmf, "restarts": FMF_RESTARTS,
+                            "metrics": m_fmf},
+         launches_by_shape={str(list(k)): v for k, v in by_shape.items()})
+    check(phases["lateral"]["csd"].shape == (24, 60), "workloads: auditory phases shape")
+    check(bool(torch.isfinite(tg.pvals).all()), "workloads: torus-graph p-values not finite")
+    check(0 <= m_aud["tg_edges_bonf_001"] <= 1128, "workloads: auditory edge count")
+    check(m_fmf["n_segments"] >= 2, f"workloads: {m_fmf['n_segments']} segments")
+    check(m_fmf["best_match_shift_corr_max"] > 0.25, "workloads: shift recovery")
+    check(m_fmf["gpcsd_evoked_corr"] > 0.7, "workloads: GPCSD evoked correlation")
+    check(np.isfinite(res.tau).all(), "workloads: shifts not finite")
+    check(by_shape.get(SHAPE_AUD, 0) > 0 and by_shape.get(SHAPE_FMF, 0) > 0
+          and by_shape.get(SHAPE_SHIFT, 0) == int(res.n_evals.sum()) > 0,
+          f"workloads: launches by shape {by_shape}")
+    return by_shape
+
+
 def main():
     check(torch.cuda.is_available(), "CUDA is not available: this check needs a GPU")
     sys.path.insert(0, ROOT)
@@ -983,8 +1245,20 @@ def main():
     launches_by_phase["ic"] = phase_ic(qf, gpu, post)
     launches_by_phase["paper_run"] = phase_paper_run(qf, smi)
 
+    # ---- the analysis stages and the two workload twins
+    X = phase_signal(dev, smi)
+    phase_torus(X, dev, smi)
+    fit_fmf, shift = phase_shifts(qf, dev, smi)
+    wl = phase_workloads(qf, dev, smi)
+
     launches_2d = {"log_prob_2d": launches_log_prob_2d, "fit_2d": launches_fit_2d}
     emit("timing_2d", **timing_2d, **profile_2d(gpu2d))
+    analysis = {}
+    for shape in (SHAPE_AUD, SHAPE_FMF, SHAPE_SHIFT):
+        kt = kernel_times(qf, shape, dev)
+        analysis[shape] = (kt["quadform_device_ms"], kt["quadform_plain_device_ms"],
+                           *quadform_bound_ms(*shape))
+        emit("timing_analysis", **kt)
 
     bound_ms, bound_by = quadform_bound_ms(*SHAPE_1D)
     print(smi)
@@ -1003,6 +1277,14 @@ def main():
          "max_abs_err": abs_err[SHAPE_2D], "ms": timing_2d["quadform_device_ms"],
          "plain_ms": timing_2d["quadform_plain_device_ms"],
          "bound_ms": timing_2d["quadform_bound_ms"], "bound_by": timing_2d["quadform_bound_by"]},
+        *({"name": f"quadform at the {label}", "shape": list(shape), **common,
+           "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
+           "max_abs_err": abs_err[shape], "ms": analysis[shape][0], "plain_ms": analysis[shape][1],
+           "bound_ms": analysis[shape][2], "bound_by": analysis[shape][3]}
+          for label, shape, by_phase in (
+              ("auditory twin's fit", SHAPE_AUD, {"workloads": wl.get(SHAPE_AUD, 0)}),
+              ("evoked twin's fit", SHAPE_FMF, {"shifts": fit_fmf, "workloads": wl.get(SHAPE_FMF, 0)}),
+              ("shift stage", SHAPE_SHIFT, {"shifts": shift, "workloads": wl.get(SHAPE_SHIFT, 0)}))),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

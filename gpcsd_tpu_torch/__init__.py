@@ -7,7 +7,10 @@ likelihood with a hand-written CUDA kernel for its quadratic form, the
 restarts, or scipy), Laplace-whitened dense-metric NUTS posterior with
 checkpoint/resume, mean-field ADVI, adaptive tempered SMC, WAIC and
 PSIS-LOO, predictions, posterior variance and Matheron posterior samples,
-and the paper-scale NUTS run (``paper_run``).  Float64 on every device, and
+the paper-scale NUTS run (``paper_run``), and the analysis stages behind
+the paper's figures: band-pass phases and PLV (``signal``), the torus graph
+and its trial bootstrap, per-trial shifts, watershed segmentation, kCSD and
+traditional CSD, with twins of two workloads in ``gpcsd_tpu_torch.workloads``.  Float64 on every device, and
 the card is the default device.  This package imports neither JAX nor ``gpcsd_tpu``.
 """
 
@@ -20,12 +23,22 @@ from .models.covariances import (
 )
 from .models.gpcsd1d import GPCSD1D
 from .models.gpcsd2d import GPCSD2D
+from .models.trad import predictcsd_trad_1d, predictcsd_trad_2d
 from .ops.forward import b_fwd_2d, fwd_model_1d, fwd_model_2d, fwd_operator_2d
 from .models.priors import HalfNormal, InvGamma, Normal
+from .models.torus_graph import torus_graph_fit, torusGraphs
+from .models.shifts import estimate_shifts
+from . import signal  # noqa: F401
+
+# Reference-compatible aliases (gpcsd.priors.GPCSD*Prior)
+GPCSDInvGammaPrior = InvGamma
+GPCSDHalfNormalPrior = HalfNormal
 
 __all__ = [
     "GPCSD1D",
     "GPCSD2D",
+    "predictcsd_trad_1d",
+    "predictcsd_trad_2d",
     "GPCSD1DSpatialCovSE",
     "GPCSD2DSpatialCovSE",
     "GPCSDTemporalCovSE",
@@ -33,6 +46,12 @@ __all__ = [
     "InvGamma",
     "HalfNormal",
     "Normal",
+    "GPCSDInvGammaPrior",
+    "GPCSDHalfNormalPrior",
+    "torus_graph_fit",
+    "torusGraphs",
+    "estimate_shifts",
+    "signal",
     "b_fwd_2d",
     "fwd_model_1d",
     "fwd_model_2d",

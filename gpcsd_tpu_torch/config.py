@@ -8,6 +8,7 @@ The H100 runs float64 natively, so there is no mixed-precision policy.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 #: Working dtype of every covariance, factorization and contraction.
@@ -30,3 +31,12 @@ def get_device(name=DEFAULT_DEVICE) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {name!r} requested but CUDA is not available")
     return dev
+
+
+def on_device(x, device=DEFAULT_DEVICE, dtype=DTYPE) -> torch.Tensor:
+    """``x`` (a tensor, numpy array or number) as a ``dtype`` tensor on
+    ``device``, through :func:`get_device`; a tensor already there is
+    returned as it is."""
+    if not isinstance(x, torch.Tensor):
+        x = np.ascontiguousarray(x)
+    return torch.as_tensor(x, dtype=dtype, device=get_device(device))

@@ -93,6 +93,7 @@ def lbfgs_minimize(
     ftol: float = 2.2e-9,
     max_linesearch: int = 25,
     c1: float = 1e-4,
+    row_data=None,
 ) -> LBFGSResult:
     """Minimize ``fun`` from every row of ``u0`` subject to ``lo <= u <= hi``
     (either may be None).
@@ -102,6 +103,10 @@ def lbfgs_minimize(
         :func:`gpcsd_tpu_torch.models.core.value_and_grad_rows`.
     :param u0: ``(C, dim)`` starting points, or ``(dim,)`` for one; the
         state lives on its device.
+    :param row_data: None, or a tensor or tuple of tensors, each with
+        leading axis ``C``: data of each row's own problem (a trial's LFP).
+        ``fun`` is then called as ``fun(u_rows, *row_data_rows)``, the data
+        gathered by the same indices as the rows of ``u`` it gets.
     """
     u0 = torch.as_tensor(u0)
     if u0.ndim == 1:
@@ -118,6 +123,15 @@ def lbfgs_minimize(
     def project(u):
         return torch.clamp(u, lo_t, hi_t) if has_box else u
 
+    if row_data is None:
+        row_data = ()
+    elif isinstance(row_data, torch.Tensor):
+        row_data = (row_data,)
+
+    def evaluate(u, data):
+        """Value and gradient of ``fun`` at ``u``, whose rows' data is ``data``."""
+        return value_and_grad_rows(lambda v: fun(v, *data), u)
+
     def proj_grad_norm(u, g):
         # norm of P(u - g) - u: zero exactly at a constrained stationary point
         return torch.amax(torch.abs(project(u - g) - u), dim=-1)
@@ -127,7 +141,7 @@ def lbfgs_minimize(
 
     # ---- init
     u = project(u0.detach()).clone()  # the state is updated in place
-    f, g = value_and_grad_rows(fun, u)
+    f, g = evaluate(u, row_data)
     n_evals += 1
     failed = ~torch.isfinite(f)
     f = torch.where(failed, big, f)
@@ -146,6 +160,7 @@ def lbfgs_minimize(
         live = torch.as_tensor(live_h, device=dev)
         ul, fl, gl, kl = u[live], f[live], g[live], k[live]
         sl, yl, rl = s_hist[live], y_hist[live], rho[live]
+        data_live = tuple(r[live] for r in row_data)
 
         d = -_two_loop(gl, sl, yl, rl, kl, m)
         # steepest descent when the direction is not a descent direction
@@ -159,7 +174,7 @@ def lbfgs_minimize(
         for it in range(max(max_linesearch, 1)):
             search = torch.as_tensor(search_h, device=dev)
             us = project(ul[search] + (0.5 ** it) * d[search])
-            fs, gs = value_and_grad_rows(fun, us)
+            fs, gs = evaluate(us, tuple(r[search] for r in data_live))
             n_evals[live_h[search_h]] += 1
             ok = torch.isfinite(fs) & (fs <= fl[search] + c1 * _dot(gl[search], us - ul[search]))
             u_new[search], f_new[search], g_new[search], ls_ok[search] = us, fs, gs, ok

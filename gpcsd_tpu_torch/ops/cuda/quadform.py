@@ -37,6 +37,8 @@ NVCC_FLAGS = (
 #: Kernel launches since import (or since a caller reset it to 0); the
 #: wrapper adds one per launch of the CUDA kernel and nowhere else.
 launch_count = 0
+#: The same launches by shape ``(nx, nt, ntrials)`` (a caller may clear it).
+launches_by_shape: dict = {}
 
 _lib = None
 _ready_devices: set[int] = set()  # devices where quadform_f64_init ran
@@ -148,6 +150,7 @@ def quadform_cuda(qs, qt, dinv, Y):
         )
     _raise_on(lib, err, "launch")
     launch_count += 1
+    launches_by_shape[(nx, nt, ntrials)] = launches_by_shape.get((nx, nt, ntrials), 0) + 1
     return out
 
 

@@ -1,6 +1,8 @@
 """PyTorch port on the card: the quadform CUDA kernel, the log-joint (single
-and batched, 1D and 2D), ``predict``, ``sample_posterior`` and the batched
-L-BFGS ``fit`` on CUDA, against their plain versions and the CPU.
+and batched, 1D and 2D), ``predict``, ``sample_posterior``, the batched
+L-BFGS ``fit``, and the analysis stages (``signal``, ``torus_graph_fit`` and
+its bootstrap, ``estimate_shifts``) on CUDA, against their plain versions
+and the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them.  The
 card has no JAX and ``tests/conftest.py`` imports it, so run this file
@@ -230,3 +232,57 @@ def test_fit_torch_backend_launches_the_kernel():
     res = m.fit(n_restarts=3, seed=0, options={"maxiter": 5})
     assert qf.launch_count - before == int(res.n_evals.sum()) > 0
     assert np.all(np.isfinite(res.nll_values)) and np.all(res.nll_values <= nll0)
+
+
+# ---- the analysis stages: card vs CPU
+
+
+def test_signal_cuda_matches_cpu():
+    from gpcsd_tpu_torch import signal as tsig
+
+    x = np.random.default_rng(0).normal(size=(60, 24, 199)).cumsum(axis=-1)
+    filt = tsig.bandpass_filtfilt(x, 8.0, 12.0, 1000.0, device="cuda")
+    want = tsig.bandpass_filtfilt(x, 8.0, 12.0, 1000.0, device="cpu")
+    assert filt.device.type == "cuda"
+    assert float((filt.cpu() - want).abs().max() / want.abs().max()) <= 1e-12
+    ph = tsig.instantaneous_phase(filt, device="cuda").cpu().numpy()
+    ph_cpu = tsig.instantaneous_phase(want, device="cpu").numpy()
+    assert np.abs(np.exp(1j * ph) - np.exp(1j * ph_cpu)).max() <= 1e-9
+    _, p = tsig.periodogram(x, fs=1000.0, device="cuda")
+    _, p_cpu = tsig.periodogram(x, fs=1000.0, device="cpu")
+    assert float((p.cpu() - p_cpu).abs().max() / p_cpu.abs().max()) <= 1e-12
+
+
+def test_torus_graph_fit_cuda_matches_cpu():
+    from gpcsd_tpu_torch.models import torus_graph as tg
+
+    lay = tg.layout(6)
+    phi = np.zeros(lay.m)
+    phi[lay.diff_off] = phi[lay.diff_off + 5] = 1.0
+    X = tg.gibbs_sample(phi, 6, 2000, seed=3)
+    got, want = tg.torus_graph_fit(X, device="cuda"), tg.torus_graph_fit(X, device="cpu")
+    for f in ("phi", "phi_cov", "pvals", "kappa", "cond_coupling"):
+        a, b = getattr(got, f).cpu(), getattr(want, f)
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-9, f
+    idx = torch.randint(0, 2000, (6, 2000), generator=torch.Generator().manual_seed(1))
+    bs = tg.bootstrap_partial_plv(X, 6, indices=idx, batch_size=4, device="cuda").cpu()
+    bs_cpu = tg.bootstrap_partial_plv(X, 6, indices=idx, batch_size=4, device="cpu")
+    assert float((bs - bs_cpu).abs().max()) <= 1e-9
+
+
+def test_estimate_shifts_cuda_matches_cpu():
+    from gpcsd_tpu_torch.models.shifts import estimate_shifts
+
+    gpu, cpu = small_models()
+    with torch.no_grad():
+        fg, fc = gpu._fns().build_factors(gpu._theta()), cpu._fns().build_factors(cpu._theta())
+    rng = np.random.default_rng(2)
+    lfp = rng.normal(size=gpu.lfp.shape)
+    nx, nt = lfp.shape[:2]
+    mu = np.sin(np.linspace(0, 3, nt))[None, None, :] * np.linspace(-1, 1, nx)[None, :, None]
+    before = qf.launch_count
+    rg = estimate_shifts(lfp, np.zeros((nx, nt)), mu, np.arange(nt) * 1.0, fg, maxiter=30, device="cuda")
+    assert qf.launch_count - before == int(rg.n_evals.sum())
+    rc = estimate_shifts(lfp, np.zeros((nx, nt)), mu, np.arange(nt) * 1.0, fc, maxiter=30, device="cpu")
+    assert np.abs(rg.tau - rc.tau).max() <= 1e-6
+    assert np.array_equal(rg.converged, rc.converged)
