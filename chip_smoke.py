@@ -16,7 +16,10 @@ nx=69 on the staggered 4-column geometry, nt=375, 100 trials, a 30 x 120
 quadrature rule (3600 nodes), eps=1, scalar noise, 8 parameters.  After
 them, the paper's analysis stages (band-pass phases, torus graph and its
 bootstrap, per-trial shifts) and the twins of the ``auditory_lfp`` and
-``fit_mean_function`` workloads run at those workloads' full width.
+``fit_mean_function`` workloads run at those workloads' full width, then
+the real-data modes on files the script writes, and the other five twins
+(``simple_template_1d``, ``sim_from_gp_1d``, the mismatch study,
+``sim_from_gp_2d``, ``neuropixels``) at their JAX defaults.
 Phases, one JSON line each:
 
 1. device: torch/CUDA versions and the card's name and power limit;
@@ -93,13 +96,33 @@ Phases, one JSON line each:
 23. workloads: both workload twins' ``run()`` on the card at full width
    (restarts cut to 3): seconds per stage, the JAX tests' thresholds,
    launches by shape;
-24. timing_analysis: the kernel vs its plain version at the three shapes
-   the analysis stages give it (device time, CUDA graph of 50 calls).
+24. io: the native parser built on this host (else the script fails), the
+   auditory twin's surrogate written in the reference's text format (2
+   probes x 24 electrodes, 400 samples, 60 trials), loaded cold and from
+   its ``.npy`` cache, equal to the written arrays and, parsed natively, to
+   ``np.loadtxt`` bit for bit; then the real-data modes on those files:
+   ``auditory_lfp.run(data_dir=)``, ``fit_mean_function.run_real`` with the
+   stage-1 pickles that run wrote, and ``neuropixels.run(data_dir=)`` on two
+   pickles in ``extract_probe``'s schema at ngl 10 x 30 (restarts, ngl and
+   nboot cut, each cut printed);
+25. workloads_sim: ``simple_template_1d``, ``sim_from_gp_1d`` (fit and
+   oracle, each with the kCSD protocol) and the mismatch study (three fits,
+   two 128-particle SMC runs, PSIS-LOO) at their JAX defaults: seconds per
+   stage, launches by shape, SMC stages and last temperature, the JAX
+   tests' thresholds;
+26. workloads_2d: ``sim_from_gp_2d`` and the Neuropixels twin (20 restarts,
+   ngl 30 x 120, nt 150, 40 trials, 4 x 1000 bootstrap replicates) at their
+   JAX defaults: seconds per stage, peak device memory, trials kept, the
+   JAX tests' thresholds;
+27. timing_analysis and timing_new_shapes: the kernel vs its plain version
+   at the shapes the analysis stages and the other twins give it (device
+   time, CUDA graph of 50 calls), each new shape first checked as in
+   phase 3.
 
 The quadform launch count is set to 0 before each stretch of the main path
 (log_prob + fit, hessian, nuts, log_prob_2d, fit_2d, reparam, advi, smc, ic,
-paper_run, the shifts phase's fit and its shift stage, workloads) and read
-after it;
+paper_run, the shifts phase's fit and its shift stage, workloads, and each
+twin's run in io, workloads_sim and workloads_2d) and read after it;
 ``predict`` and the other outputs solve with the factors and launch no
 kernel.  Any failure raises and the script
 exits non-zero.  Without CUDA, or run outside a checkout of the repository,
@@ -131,8 +154,18 @@ SHAPE_1D, SHAPE_2D = (24, 600, 100), (69, 375, 100)
 #: baseline samples of 400, 60 trials), fit_mean_function's fit and its
 #: shift stage (one trial per launch)
 SHAPE_AUD, SHAPE_FMF, SHAPE_SHIFT = (24, 200, 60), (24, 60, 40), (24, 60, 1)
+#: the shapes the remaining twins give it at their defaults: sim_from_gp_1d's
+#: fit, the mismatch study's fits and SMC, sim_from_gp_2d's fit (a 4 x 25
+#: grid), simple_template_1d's fits (one trial), and the real-data evoked
+#: twin's shift stage (151 samples of the 0-150 ms window); the Neuropixels
+#: twin's (36 sites, 150 samples, the trials its outlier rejection keeps) is
+#: known after its run
+SHAPE_SIM1D, SHAPE_MISMATCH, SHAPE_SIM2D = (24, 60, 100), (24, 50, 50), (100, 30, 3)
+SHAPE_TEMPLATE, SHAPE_REAL_SHIFT = (24, 50, 1), (24, 151, 1)
+NPX_NX, NPX_NT = 36, 150
 KERNEL_SHAPES = [
-    SHAPE_1D, SHAPE_2D, SHAPE_AUD, SHAPE_FMF, SHAPE_SHIFT, (7, 129, 3), (69, 375, 5),
+    SHAPE_1D, SHAPE_2D, SHAPE_AUD, SHAPE_FMF, SHAPE_SHIFT, SHAPE_SIM1D, SHAPE_MISMATCH,
+    SHAPE_SIM2D, SHAPE_TEMPLATE, SHAPE_REAL_SHIFT, (7, 129, 3), (69, 375, 5),
     (24, 600, 1), (24, 601, 7), (130, 64, 2), (811, 16, 1), (1000, 16, 1), (1, 8, 1),
 ]
 
@@ -209,29 +242,33 @@ def sass_counts(lib, cuobjdump):
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("DMMA", "LDGSTS", "UTMALDG", "DFMA")}
 
 
+def check_kernel(qf, shape, dev, gen):
+    """Kernel vs plain version at ``shape``: value rtol 1e-12, gradients
+    1e-10 (f64, another summation order), two calls bit-equal.  Returns the
+    abs value error."""
+    ins = kernel_inputs(gen, *shape, dev)
+    got = float(qf.quadform_cuda(*ins))
+    again = float(qf.quadform_cuda(*ins))
+    want = float(qf.quadform_reference(*ins))
+    torch.cuda.synchronize()
+    check(rel(got, want) <= 1e-12, f"quadform value {shape}: {got} vs {want}")
+    check(again == got, f"quadform {shape}: two calls differ ({got} vs {again})")
+    a = [t.clone().requires_grad_() for t in ins]
+    b = [t.clone().requires_grad_() for t in ins]
+    ga = torch.autograd.grad(qf.quadform(*a), a[:3])
+    gb = torch.autograd.grad(qf.quadform_reference(*b), b[:3])
+    gerr = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(ga, gb))
+    check(gerr <= 1e-10, f"quadform gradient {shape}: rel err {gerr}")
+    emit("kernel", shape=list(shape), value=got, plain=want,
+         rel_err=rel(got, want), grad_rel_err=gerr)
+    return abs(got - want)
+
+
 def phase_kernel(qf, dev):
-    """Kernel vs plain version: value rtol 1e-12, gradients 1e-10 (f64,
-    another summation order).  Returns the abs value error by shape."""
+    """:func:`check_kernel` at every shape of :data:`KERNEL_SHAPES`.
+    Returns the abs value error by shape."""
     gen = torch.Generator().manual_seed(0)
-    abs_err = {}
-    for shape in KERNEL_SHAPES:
-        ins = kernel_inputs(gen, *shape, dev)
-        got = float(qf.quadform_cuda(*ins))
-        again = float(qf.quadform_cuda(*ins))
-        want = float(qf.quadform_reference(*ins))
-        torch.cuda.synchronize()
-        check(rel(got, want) <= 1e-12, f"quadform value {shape}: {got} vs {want}")
-        check(again == got, f"quadform {shape}: two calls differ ({got} vs {again})")
-        abs_err[shape] = abs(got - want)
-        a = [t.clone().requires_grad_() for t in ins]
-        b = [t.clone().requires_grad_() for t in ins]
-        ga = torch.autograd.grad(qf.quadform(*a), a[:3])
-        gb = torch.autograd.grad(qf.quadform_reference(*b), b[:3])
-        gerr = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(ga, gb))
-        check(gerr <= 1e-10, f"quadform gradient {shape}: rel err {gerr}")
-        emit("kernel", shape=list(shape), value=got, plain=want,
-             rel_err=rel(got, want), grad_rel_err=gerr)
-    return abs_err
+    return {shape: check_kernel(qf, shape, dev, gen) for shape in KERNEL_SHAPES}
 
 
 def max_rel(a, b):
@@ -1145,6 +1182,231 @@ def phase_workloads(qf, dev, smi):
     return by_shape
 
 
+# -------------------------------------------- the loaders and the other twins
+
+#: io phase: the auditory twin's surrogate written in the reference's text
+#: format (2 probes x 24 electrodes, 400 samples, 60 trials)
+IO_NTIME, IO_NTRIALS = 400, 60
+#: io phase: the twins on the written files, cut to keep the phase short
+IO_AUD_RESTARTS, IO_NPX_RESTARTS, IO_NPX_NGL, IO_NPX_NBOOT = 3, 3, (10, 30), 100
+#: workloads_2d phase: the Neuropixels twin at its JAX defaults
+NPX_RESTARTS, NPX_NBOOT = 20, 1000
+
+
+def shape_key(shape):
+    return str(list(shape))
+
+
+def run_counted(qf, fn):
+    """``fn()`` on a synchronised device with the quadform counts set to 0
+    just before: (result, seconds, launches, launches by shape)."""
+    qf.launch_count = 0
+    qf.launches_by_shape.clear()
+    out, seconds = sync_seconds(fn)
+    return out, seconds, qf.launch_count, dict(qf.launches_by_shape)
+
+
+def write_auditory_text(dirpath, probes):
+    """The probes in the reference's text format: ``time.txt`` in seconds and
+    ``<probe>_electrode<i>.txt`` of (samples, trials) values x100."""
+    os.makedirs(dirpath, exist_ok=True)
+    time_ms = next(iter(probes.values()))[1]
+    np.savetxt(os.path.join(dirpath, "time.txt"), time_ms / 1000.0)
+    for name, (lfp, _) in probes.items():
+        for i in range(lfp.shape[0]):
+            np.savetxt(os.path.join(dirpath, f"{name}_electrode{i + 1}.txt"), 100.0 * lfp[i])
+
+
+def write_neuropixels_pickles(dirpath, npx, dev):
+    """The Neuropixels twin's two surrogate probes as pickles in
+    ``extract_probe``'s schema (t in seconds, y x100): 150 samples from
+    -39.5 to 109.5 ms, so the twin's -40..110 ms window keeps all of them."""
+    import pickle
+
+    os.makedirs(dirpath, exist_ok=True)
+    x = npx.neuropixels_geometry()
+    t_s = (np.arange(NPX_NT) - 39.5) / 1000.0
+    for i, probe in enumerate(npx.PROBES):
+        lfp, _ = npx.synth_probe(x, nt=NPX_NT, ntrials=40, seed=i, device=dev)
+        with open(os.path.join(dirpath, f"neuropixel_viz_{probe}_m405751.pkl"), "wb") as f:
+            pickle.dump({"x": x, "t": t_s.reshape(-1, 1), "y": 100.0 * lfp, "fs": 1000,
+                         "roi": "V1", "regions": np.ones(x.shape[0], dtype=np.int64)}, f)
+
+
+def phase_io(qf, dev, smi):
+    """The native parser built on this host (else fail); the auditory
+    surrogate written as text and loaded cold and from its ``.npy`` cache:
+    equal to the written arrays to 1e-12 relative, the native parse equal to
+    ``np.loadtxt`` bit for bit; ``auditory_lfp.run(data_dir=)``, then
+    ``fit_mean_function.run_real`` restoring the pickles that run wrote, with
+    the JAX tests' thresholds; ``neuropixels.run(data_dir=)`` on two pickles
+    in ``extract_probe``'s schema at ngl 10 x 30.  Returns the launches by
+    shape of the three runs."""
+    from gpcsd_tpu_torch import native
+    from gpcsd_tpu_torch.io import loaders
+    from gpcsd_tpu_torch.workloads import auditory_lfp as aud
+    from gpcsd_tpu_torch.workloads import fit_mean_function as fmf
+    from gpcsd_tpu_torch.workloads import neuropixels as npx
+
+    check(native.lib() is not None, "io: the native parser did not build on this host")
+    tmp = tempfile.mkdtemp(prefix="io_")
+    try:
+        data = os.path.join(tmp, "aud")
+        probes = aud.surrogate(0, IO_NTIME, IO_NTRIALS, device=dev)
+        _, write_s = sync_seconds(lambda: write_auditory_text(data, probes))
+        (lfp, time_ms), cold_s = sync_seconds(lambda: loaders.load_auditory_probe(data, "lateral"))
+        (lfp_hot, _), hot_s = sync_seconds(lambda: loaders.load_auditory_probe(data, "lateral"))
+        want = probes["lateral"][0] - probes["lateral"][0].mean(axis=2, keepdims=True)
+        load_err = max_rel(lfp, want)
+        paths = [os.path.join(data, f"medial_electrode{i + 1}.txt") for i in range(aud.NX)]
+        stack = loaders.load_electrode_stack(paths)
+        numpy_stack, numpy_s = sync_seconds(lambda: np.stack([np.loadtxt(p) for p in paths]))
+        bit_equal = bool(np.array_equal(stack, numpy_stack))
+
+        stage1 = os.path.join(tmp, "stage1")
+        t_aud, t_real, t_npx = {}, {}, {}
+        (m_aud, phases, tg), aud_s, aud_n, aud_shapes = run_counted(qf, lambda: aud.run(
+            data_dir=data, n_restarts=IO_AUD_RESTARTS, nboot=10, seed=0, results_dir=stage1,
+            device=dev, timings=t_aud))
+        (m_real, res_real), real_s, real_n, real_shapes = run_counted(qf, lambda: fmf.run_real(
+            data, stage1_dir=stage1, seed=0, device=dev, timings=t_real))
+        write_neuropixels_pickles(os.path.join(tmp, "npx"), npx, dev)
+        m_npx, npx_s, npx_n, npx_shapes = run_counted(qf, lambda: npx.run(
+            data_dir=os.path.join(tmp, "npx"), n_restarts=IO_NPX_RESTARTS, ngl1=IO_NPX_NGL[0],
+            ngl2=IO_NPX_NGL[1], nboot=IO_NPX_NBOOT, seed=0, device=dev, timings=t_npx))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("io", card=smi, compiler=native.compiler_version(),
+         library=os.path.relpath(native.library_path(), ROOT),
+         text_files=2 * aud.NX + 1, shape=list(lfp.shape), write_seconds=write_s,
+         load_cold_seconds=cold_s, load_cached_seconds=hot_s, numpy_loadtxt_seconds_24_files=numpy_s,
+         load_rel_err=load_err, native_equals_loadtxt=bit_equal,
+         auditory_lfp={"seconds": aud_s, "stages": t_aud, "restarts": IO_AUD_RESTARTS,
+                       "restarts_cut_from": 10, "launches": aud_n,
+                       "launches_by_shape": {shape_key(k): v for k, v in aud_shapes.items()},
+                       "metrics": m_aud},
+         fit_mean_function_real={"seconds": real_s, "stages": t_real, "launches": real_n,
+                                 "launches_by_shape": {shape_key(k): v for k, v in real_shapes.items()},
+                                 "metrics": m_real},
+         neuropixels={"seconds": npx_s, "stages": t_npx, "restarts": IO_NPX_RESTARTS,
+                      "restarts_cut_from": 20, "ngl": list(IO_NPX_NGL), "ngl_cut_from": [30, 120],
+                      "nboot": IO_NPX_NBOOT, "nboot_cut_from": 1000, "launches": npx_n,
+                      "launches_by_shape": {shape_key(k): v for k, v in npx_shapes.items()},
+                      "metrics": m_npx})
+    check(load_err <= 1e-12, f"io: loaded LFP vs written {load_err}")
+    check(np.array_equal(lfp_hot, lfp), "io: the cached load differs from the parse")
+    check(bit_equal, "io: the native parse differs from np.loadtxt")
+    check(m_aud["source"] == "zenodo" and phases["lateral"]["csd"].shape == (24, IO_NTRIALS),
+          "io: auditory real-data run")
+    check(bool(torch.isfinite(tg.pvals).all()) and 0 <= m_aud["tg_edges_bonf_001"] <= 1128,
+          "io: auditory torus graph")
+    for probe in ("lateral", "medial"):
+        check(m_real[f"{probe}_stage1_restored"] is True, f"io: {probe} stage-1 pickle not restored")
+        check(np.isfinite(m_real[f"{probe}_kcsd_gpcsd_corr"]), f"io: {probe} kCSD correlation")
+        check(m_real[f"{probe}_n_segments"] >= 1, f"io: {probe} has no segment")
+        check(0.0 <= m_real[f"{probe}_converged_frac"] <= 1.0, f"io: {probe} converged fraction")
+    check(m_npx["source"] == "nwb" and m_npx["probeC_csd_pred_shape"][:2] == [4, NPX_NT],
+          f"io: neuropixels real-data run {m_npx.get('probeC_csd_pred_shape')}")
+    check(aud_shapes.get(SHAPE_AUD, 0) > 0 and real_shapes.get(SHAPE_REAL_SHIFT, 0) > 0
+          and real_n == real_shapes[SHAPE_REAL_SHIFT] and npx_n > 0,
+          f"io: launches {aud_shapes} {real_shapes} {npx_shapes}")
+    return merge_counts(aud_shapes, real_shapes, npx_shapes)
+
+
+def merge_counts(*dicts):
+    out = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def phase_workloads_sim(qf, dev, smi):
+    """``simple_template_1d``, ``sim_from_gp_1d`` (fit and oracle, each with
+    the kCSD protocol) and the mismatch study on the card at their JAX
+    defaults, with the JAX tests' thresholds.  Returns the launches by
+    shape."""
+    from gpcsd_tpu_torch.workloads import sim_from_gp_1d as s1
+    from gpcsd_tpu_torch.workloads import sim_from_gp_1d_mismatch as mm
+    from gpcsd_tpu_torch.workloads import simple_template_1d as st
+
+    runs = {
+        "simple_template_1d": lambda t: st.run(device=dev, timings=t)[0],
+        "sim_from_gp_1d": lambda t: s1.run(kcsd=True, device=dev, timings=t)[0],
+        "sim_from_gp_1d_fix": lambda t: s1.run(fix=True, kcsd=True, device=dev, timings=t)[0],
+        "sim_from_gp_1d_mismatch": lambda t: mm.run(device=dev, timings=t),
+    }
+    out, m, by_shape = {}, {}, {}
+    for name, fn in runs.items():
+        stages = {}
+        m[name], seconds, launches, shapes = run_counted(qf, lambda: fn(stages))
+        out[name] = {"seconds": seconds, "stages": stages, "launches": launches,
+                     "launches_by_shape": {shape_key(k): v for k, v in shapes.items()},
+                     "metrics": m[name]}
+        by_shape = merge_counts(by_shape, shapes)
+    emit("workloads_sim", card=smi, **out)
+    t, f1, fx, mmm = (m[k] for k in runs)
+    check(t["white_noise_gpcsd_r2"] > 0.9 and t["white_noise_gpcsd_mse"] < t["white_noise_tcsd_mse"]
+          and 50 < t["white_noise_fitted_R"] < 600, "workloads_sim: simple template")
+    check(f1["gpcsd_mse_mean"] < f1["tcsd_mse_mean"] and f1["paired_p_gp_vs_tcsd"] < 0.01
+          and f1["gpcsd_r2_mean"] > 0.8, "workloads_sim: sim_from_gp_1d fit vs tCSD")
+    check(fx["gpcsd_r2_mean"] > 0.85 and fx["fitted_R"] == 100.0, "workloads_sim: oracle")
+    for r in (f1, fx):
+        check(np.isfinite(r["kcsd_R"]) and r["kcsd_lambda"] > 0, "workloads_sim: kCSD selection")
+    check(fx["gpcsd_mse_mean"] < fx["kcsd_mse_mean"] and fx["paired_p_gp_vs_kcsd"] < 0.05,
+          "workloads_sim: oracle vs kCSD")
+    check(mmm["mse_2comp_fit2"] < 0.05 and mmm["mse_2comp_fit1"] < 0.5, "workloads_sim: mismatch MSE")
+    check(mmm["loo_best_stack"] == "2comp" and np.isfinite(mmm["loo_elpd_1comp"])
+          and np.isfinite(mmm["loo_elpd_2comp"]), "workloads_sim: mismatch LOO")
+    check(out["simple_template_1d"]["launches_by_shape"].get(shape_key(SHAPE_TEMPLATE), 0) > 0
+          and out["sim_from_gp_1d"]["launches_by_shape"].get(shape_key(SHAPE_SIM1D), 0) > 0
+          and out["sim_from_gp_1d_fix"]["launches"] == 0
+          and out["sim_from_gp_1d_mismatch"]["launches_by_shape"].get(shape_key(SHAPE_MISMATCH), 0) > 0,
+          f"workloads_sim: launches {by_shape}")
+    return by_shape
+
+
+def phase_workloads_2d(qf, dev, smi):
+    """``sim_from_gp_2d`` and ``neuropixels`` on the card at their JAX
+    defaults (the Neuropixels twin: 20 restarts, ngl 30 x 120, nt 150, 40
+    trials, nboot 1000) with the JAX tests' thresholds, and peak device
+    memory.  Returns the launches by shape."""
+    from gpcsd_tpu_torch.workloads import neuropixels as npx
+    from gpcsd_tpu_torch.workloads import sim_from_gp_2d as s2
+
+    out, by_shape = {}, {}
+    t2, tn = {}, {}
+    for name, fn, stages in (("sim_from_gp_2d", lambda: s2.run(device=dev, timings=t2)[0], t2),
+                             ("neuropixels", lambda: npx.run(n_restarts=NPX_RESTARTS,
+                                                             nboot=NPX_NBOOT, device=dev,
+                                                             timings=tn), tn)):
+        torch.cuda.reset_peak_memory_stats()
+        metrics, seconds, launches, shapes = run_counted(qf, fn)
+        out[name] = {"seconds": seconds, "stages": stages, "launches": launches,
+                     "launches_by_shape": {shape_key(k): v for k, v in shapes.items()},
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated(), "metrics": metrics}
+        by_shape = merge_counts(by_shape, shapes)
+    m2, mn = out["sim_from_gp_2d"]["metrics"], out["neuropixels"]["metrics"]
+    emit("workloads_2d", card=smi, restarts=NPX_RESTARTS, nboot=NPX_NBOOT,
+         probe_trials_kept={p: mn[f"{p}_trials_kept"] for p in npx.PROBES}, **out)
+    check(m2["oracle_r2"] > 0.6 and np.isfinite(m2["fitted_rmse"]), "workloads_2d: sim_from_gp_2d")
+    check(mn["source"] == "surrogate", "workloads_2d: neuropixels source")
+    for p in npx.PROBES:
+        check(mn[f"{p}_csd_pred_shape"] == [4, NPX_NT, mn[f"{p}_trials_kept"]] and np.isfinite(mn[f"{p}_R"]),
+              f"workloads_2d: neuropixels {p}")
+    for tag in ("tg_3_7_t0", "tg_3_7_t70", "tg_15_25_t0", "tg_15_25_t70"):
+        w = mn.get(f"{tag}_pplv_ci_width_mean", np.nan)
+        check(f"{tag}_edges_bonf" in mn and np.isfinite(w) and 0.0 <= w <= 1.0,
+              f"workloads_2d: torus graph {tag}")
+    check(by_shape.get(SHAPE_SIM2D, 0) > 0 and npx_shapes(by_shape), f"workloads_2d: launches {by_shape}")
+    return by_shape
+
+
+def npx_shapes(by_shape):
+    """The Neuropixels twin's shapes among ``by_shape``'s keys."""
+    return sorted(k for k in by_shape if k[:2] == (NPX_NX, NPX_NT))
+
+
 def main():
     check(torch.cuda.is_available(), "CUDA is not available: this check needs a GPU")
     sys.path.insert(0, ROOT)
@@ -1251,6 +1513,11 @@ def main():
     fit_fmf, shift = phase_shifts(qf, dev, smi)
     wl = phase_workloads(qf, dev, smi)
 
+    # ---- the real-data modes on written files, and the other five twins
+    wl_io = phase_io(qf, dev, smi)
+    wl_sim = phase_workloads_sim(qf, dev, smi)
+    wl_2d = phase_workloads_2d(qf, dev, smi)
+
     launches_2d = {"log_prob_2d": launches_log_prob_2d, "fit_2d": launches_fit_2d}
     emit("timing_2d", **timing_2d, **profile_2d(gpu2d))
     analysis = {}
@@ -1259,6 +1526,27 @@ def main():
         analysis[shape] = (kt["quadform_device_ms"], kt["quadform_plain_device_ms"],
                            *quadform_bound_ms(*shape))
         emit("timing_analysis", **kt)
+
+    by_phase_new = {"io": wl_io, "workloads_sim": wl_sim, "workloads_2d": wl_2d}
+    new_rows = [(f"Neuropixels twin's fit, {shape[2]} trials kept", shape)
+                for shape in npx_shapes(merge_counts(wl_2d, wl_io))]
+    new_rows += [("sim_from_gp_1d twin's fit", SHAPE_SIM1D),
+                 ("mismatch study's fits and SMC", SHAPE_MISMATCH),
+                 ("sim_from_gp_2d twin's fit", SHAPE_SIM2D),
+                 ("simple template's fits", SHAPE_TEMPLATE),
+                 ("real-data evoked twin's shift stage", SHAPE_REAL_SHIFT)]
+    for label, shape in new_rows:
+        check(sum(d.get(shape, 0) for d in by_phase_new.values()) > 0,
+              f"the {label} {shape} launched no kernel")
+    gen = torch.Generator().manual_seed(0)
+    new_times = {}
+    for _, shape in new_rows:
+        if shape not in abs_err:
+            abs_err[shape] = check_kernel(qf, shape, dev, gen)
+        kt = kernel_times(qf, shape, dev)
+        new_times[shape] = (kt["quadform_device_ms"], kt["quadform_plain_device_ms"],
+                            *quadform_bound_ms(*shape))
+        emit("timing_new_shapes", **kt)
 
     bound_ms, bound_by = quadform_bound_ms(*SHAPE_1D)
     print(smi)
@@ -1282,9 +1570,16 @@ def main():
            "max_abs_err": abs_err[shape], "ms": analysis[shape][0], "plain_ms": analysis[shape][1],
            "bound_ms": analysis[shape][2], "bound_by": analysis[shape][3]}
           for label, shape, by_phase in (
-              ("auditory twin's fit", SHAPE_AUD, {"workloads": wl.get(SHAPE_AUD, 0)}),
+              ("auditory twin's fit", SHAPE_AUD, {"workloads": wl.get(SHAPE_AUD, 0),
+                                                  "io": wl_io.get(SHAPE_AUD, 0)}),
               ("evoked twin's fit", SHAPE_FMF, {"shifts": fit_fmf, "workloads": wl.get(SHAPE_FMF, 0)}),
               ("shift stage", SHAPE_SHIFT, {"shifts": shift, "workloads": wl.get(SHAPE_SHIFT, 0)}))),
+        *({"name": f"quadform at the {label}", "shape": list(shape), **common,
+           "launches": sum(d.get(shape, 0) for d in by_phase_new.values()),
+           "launches_by_phase": {k: d.get(shape, 0) for k, d in by_phase_new.items() if d.get(shape, 0)},
+           "max_abs_err": abs_err[shape], "ms": new_times[shape][0], "plain_ms": new_times[shape][1],
+           "bound_ms": new_times[shape][2], "bound_by": new_times[shape][3]}
+          for label, shape in new_rows),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

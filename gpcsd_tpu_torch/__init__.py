@@ -10,8 +10,11 @@ PSIS-LOO, predictions, posterior variance and Matheron posterior samples,
 the paper-scale NUTS run (``paper_run``), and the analysis stages behind
 the paper's figures: band-pass phases and PLV (``signal``), the torus graph
 and its trial bootstrap, per-trial shifts, watershed segmentation, kCSD and
-traditional CSD, with twins of two workloads in ``gpcsd_tpu_torch.workloads``.  Float64 on every device, and
-the card is the default device.  This package imports neither JAX nor ``gpcsd_tpu``.
+traditional CSD; the text loaders with their native C++ parser
+(``io.loaders``, ``native``) and the NWB extraction (``io.nwb``); and twins
+of the seven workloads in ``gpcsd_tpu_torch.workloads``, with their
+real-data modes.  Float64 on every device, and the card is the default
+device.  This package imports neither JAX nor ``gpcsd_tpu``.
 """
 
 from . import config  # noqa: F401

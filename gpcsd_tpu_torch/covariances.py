@@ -1,8 +1,7 @@
-"""Reference import-path alias (``gpcsd.covariances``).  The port's 1D
-spatial covariance has no separate base class: ``GPCSD1DSpatialCovSE`` is
-the whole of it."""
+"""Reference import-path alias (``gpcsd.covariances``)."""
 
 from .models.covariances import (  # noqa: F401
+    GPCSD1DSpatialCov,
     GPCSD1DSpatialCovSE,
     GPCSD2DSpatialCov,
     GPCSD2DSpatialCovSE,

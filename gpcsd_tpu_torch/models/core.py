@@ -44,6 +44,11 @@ class ModelFns(NamedTuple):
     full_theta: Callable  # theta -> theta merged with fixed params
 
 
+def temporal_param_names(n_components: int):
+    """The (ell, sigma2) parameter names of each temporal component."""
+    return [(f"tm{i}_ell", f"tm{i}_sigma2") for i in range(n_components)]
+
+
 def make_model_fns(
     param_set: ParamSet,
     build_ks,
@@ -71,12 +76,14 @@ def make_model_fns(
     def full_theta(theta: Dict) -> Dict:
         return {**theta, **fixed} if fixed else theta
 
+    names = temporal_param_names(len(temporal_kinds))
+
     def build_kt_components(theta: Dict, t=None, tprime=None):
         tt = t_data if t is None else t
         tp = t_data if tprime is None else tprime
         return [
-            TEMPORAL_KERNELS[kind](tt, tp, theta[f"tm{i}_ell"], theta[f"tm{i}_sigma2"])
-            for i, kind in enumerate(temporal_kinds)
+            TEMPORAL_KERNELS[kind](tt, tp, theta[ell], theta[sigma2])
+            for kind, (ell, sigma2) in zip(temporal_kinds, names)
         ]
 
     def build_kt(theta: Dict, t=None, tprime=None):

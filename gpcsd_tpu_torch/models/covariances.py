@@ -52,12 +52,11 @@ def _interval_prior(lb, ub):
     return InvGamma.from_interval(lb, ub)
 
 
-class GPCSD1DSpatialCovSE:
-    """SE spatial covariance with the forward model folded in by quadrature."""
+class GPCSD1DSpatialCov:
+    """Geometry of a 1D spatial covariance: the electrode sites and the
+    Gauss-Legendre rule over [a, b] (numpy, host-side)."""
 
-    kind = "se"
-
-    def __init__(self, x, ell_prior=None, a=None, b=None, ngl=100, gen=None):
+    def __init__(self, x, a=None, b=None, ngl=100):
         self.x = np.asarray(x).reshape(-1, 1)
         xf = _flat(x)
         self.a = float(np.min(xf)) if a is None else float(a)
@@ -66,6 +65,16 @@ class GPCSD1DSpatialCovSE:
         rule = gauss_legendre(self.a, self.b, self.ngl)
         self.gl_x = rule.x
         self.gl_w = rule.w
+
+
+class GPCSD1DSpatialCovSE(GPCSD1DSpatialCov):
+    """SE spatial covariance with the forward model folded in by quadrature."""
+
+    kind = "se"
+
+    def __init__(self, x, ell_prior=None, a=None, b=None, ngl=100, gen=None):
+        super().__init__(x, a=a, b=b, ngl=ngl)
+        xf = _flat(x)
         if ell_prior is None:
             ell_prior = _interval_prior(
                 1.2 * np.min(np.diff(xf)), 0.8 * (np.max(xf) - np.min(xf))

@@ -432,18 +432,26 @@ class GPCSD2D(InferenceAPIMixin):
                 n_draws, seed, method, n_features, draws,
             )
 
-    def sample_prior(self, ntrials, type="csd", seed=1):
+    def sample_prior(self, ntrials, type="csd", seed=1, normals=None):
         """Prior CSD and/or (experimental) LFP draws from
         ``numpy.random.default_rng(seed)``; returns ``(csd, lfp)``, each
         (nx, nt, ntrials), with NaNs for the branch not requested, matching
-        ``gpcsd2d.py:336-360``.  Both branches share one set of normals."""
+        ``gpcsd2d.py:336-360``.  Both branches share one set of normals.
+
+        :param normals: (ntrials, nx, nt) standard normals to use in place of
+            the generator's draws (pre-drawn numbers, as ``draws=`` of
+            :meth:`predict_samples`), or None."""
         nx, nt = self.x.shape[0], self.t.shape[0]
         out = {"csd": np.nan * np.zeros((nx, nt, ntrials)),
                "lfp": np.nan * np.zeros((nx, nt, ntrials))}
         with torch.no_grad():
             theta = self._theta()
             Lt = torch.linalg.cholesky(self._fns().build_kt(theta))
-            z = self._tensor(np.random.default_rng(seed).standard_normal((ntrials, nx, nt)))
+            if normals is None:
+                normals = np.random.default_rng(seed).standard_normal((ntrials, nx, nt))
+            elif np.shape(normals) != (ntrials, nx, nt):
+                raise ValueError(f"normals must have shape {(ntrials, nx, nt)}, got {np.shape(normals)}")
+            z = self._tensor(normals)
             eye = torch.eye(nx, dtype=config.DTYPE, device=self.device)
             x = self._tensor(self.x)
             spatial = {}

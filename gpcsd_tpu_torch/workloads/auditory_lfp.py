@@ -1,14 +1,16 @@
 """Auditory two-probe LFP pipeline (reference Figures 2-3), twin of
-``workloads/auditory_lfp.py`` on the PyTorch port, surrogate mode.
+``workloads/auditory_lfp.py`` on the PyTorch port.
 
 Parity target: the reference ``auditory_lfp/fit_gpcsd_baseline.py`` +
 ``torus_graph_fit.py``:
 
-1. a 24-electrode LFP per probe: here the JAX workload's surrogate, a
-   GPCSD1D prior draw pushed through the forward model, with a 10 Hz
-   oscillation whose phase is coupled across the two probes (the prior
-   draw comes from numpy's generator, so it is not the JAX workload's
-   array for the same seed);
+1. a 24-electrode LFP per probe: the reference's text files (Zenodo record
+   5137888) read by :func:`load_probe` when ``data_dir`` holds
+   ``time.txt`` (rescaled /100, de-meaned across trials), else the JAX
+   workload's surrogate, a GPCSD1D prior draw pushed through the forward
+   model, with a 10 Hz oscillation whose phase is coupled across the two
+   probes (the prior draw comes from numpy's generator, so it is not the
+   JAX workload's array for the same seed);
 2. GPCSD1D with the paper's covariance stack: padded integration bounds
    (a=-200, b=2600), Matern ell prior on (1, 20) ms, SE ell prior on
    (30, 100) ms, per-channel HalfNormal(0.1) noise; MAP fit on the baseline
@@ -18,10 +20,9 @@ Parity target: the reference ``auditory_lfp/fit_gpcsd_baseline.py`` +
 5. torus-graph phase-differences fit on the stacked two-probe phases (48
    channels) with a trial bootstrap of the partial PLV.
 
-Stages 3-5 keep their tensors on the device.  The real-data mode (the
-Zenodo text files) and the figures are not ported.
+Stages 3-5 keep their tensors on the device.  The figures are not ported.
 
-Run: ``python -m gpcsd_tpu_torch.workloads.auditory_lfp [--quick] [--device cpu]``
+Run: ``python -m gpcsd_tpu_torch.workloads.auditory_lfp [--data-dir PATH] [--quick] [--device cpu]``
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch
 
 from .. import config
 from .. import signal as tsig
+from ..io.loaders import load_auditory_probe
 from ..models.covariances import (
     GPCSD1DSpatialCovSE,
     GPCSDTemporalCovMatern,
@@ -49,6 +51,13 @@ from .common import report, stage
 FS = 1000.0  # Hz
 A, B = 0.0, 2300.0
 NX = 24
+
+
+def load_probe(data_dir, probe):
+    """(nx, ntime, ntrials) LFP and the time in ms from the reference's text
+    files, through the native parallel parser (numpy fallback inside the
+    loader); numpy arrays on the host."""
+    return load_auditory_probe(data_dir, probe, n_electrodes=NX)
 
 
 def synth_probe(seed, ntime=400, ntrials=60, coupled_phases=None, f_hz=10.0,
@@ -183,19 +192,27 @@ def torus_stage(X, nboot, seed=0, device=config.DEFAULT_DEVICE, timings=None):
     return tg, metrics
 
 
-def run(n_restarts=10, nuts=False, nboot=10, seed=0, results_dir=None, ntime=400,
-        ntrials=60, device=config.DEFAULT_DEVICE, timings=None):
-    """The surrogate pipeline; returns (metrics, phases, torus-graph result).
+def run(data_dir=None, n_restarts=10, nuts=False, nboot=10, seed=0, results_dir=None,
+        ntime=400, ntrials=60, device=config.DEFAULT_DEVICE, timings=None):
+    """The pipeline on the text files in ``data_dir`` (when it holds
+    ``time.txt``) or on the surrogate; returns (metrics, phases,
+    torus-graph result).
 
     :param timings: a dict to which each stage's seconds are added
-        (``surrogate``, ``fit``, ``predict``, ``phases``, ``torus_graph``,
-        ``bootstrap``), or None.
+        (``load`` or ``surrogate``, ``fit``, ``predict``, ``phases``,
+        ``torus_graph``, ``bootstrap``), or None.
     """
     dev = config.get_device(device)
-    with stage(timings, "surrogate", dev):
-        probes = surrogate(seed, ntime, ntrials, device=dev)
+    if data_dir and os.path.isfile(os.path.join(data_dir, "time.txt")):
+        with stage(timings, "load", dev):
+            probes = {p: load_probe(data_dir, p) for p in ("lateral", "medial")}
+        source = "zenodo"
+    else:
+        with stage(timings, "surrogate", dev):
+            probes = surrogate(seed, ntime, ntrials, device=dev)
+        source = "surrogate"
     phases = {}
-    metrics = {"source": "surrogate"}
+    metrics = {"source": source}
     for pname, (lfp, time) in probes.items():
         baseline_idx = time < 0
         with stage(timings, "fit", dev):
@@ -221,12 +238,14 @@ def run(n_restarts=10, nuts=False, nboot=10, seed=0, results_dir=None, ntime=400
 
 def main(argv=None):
     p = argparse.ArgumentParser()
+    p.add_argument("--data-dir", default=None)
     p.add_argument("--quick", action="store_true")
     p.add_argument("--nuts", action="store_true", help="NUTS posterior instead of MAP")
     p.add_argument("--results-dir", default=None)
     p.add_argument("--device", default=config.DEFAULT_DEVICE)
     args = p.parse_args(argv)
-    kw = dict(nuts=args.nuts, results_dir=args.results_dir, device=args.device)
+    kw = dict(data_dir=args.data_dir, nuts=args.nuts, results_dir=args.results_dir,
+              device=args.device)
     if args.quick:
         kw.update(n_restarts=3, nboot=4, ntime=200, ntrials=30)
     run(**kw)

@@ -67,3 +67,36 @@ def test_gpcsd1d_str_matches_jax():
     for per_channel in (False, True):
         jm = jax_small_model(per_channel=per_channel)
         assert str(port_of(jm)) == str(jm)
+
+
+def test_gpcsd1d_spatial_cov_base_class():
+    """``gpcsd_tpu_torch.covariances.GPCSD1DSpatialCov`` is the 1D spatial
+    base class, as in the JAX package: the SE covariance subclasses it, and
+    its quadrature rule equals JAX's."""
+    from gpcsd_tpu.models.covariances import GPCSD1DSpatialCov as JBase
+    from gpcsd_tpu_torch.covariances import GPCSD1DSpatialCov, GPCSD1DSpatialCovSE
+
+    assert issubclass(GPCSD1DSpatialCovSE, GPCSD1DSpatialCov)
+    x = np.linspace(0.0, 2300.0, 24).reshape(-1, 1)
+    base, want = GPCSD1DSpatialCov(x, a=-200.0, b=2600.0, ngl=60), JBase(x, a=-200.0, b=2600.0, ngl=60)
+    se = GPCSD1DSpatialCovSE(x, a=-200.0, b=2600.0, ngl=60)
+    assert isinstance(se, GPCSD1DSpatialCov)
+    for obj in (base, se):
+        assert (obj.a, obj.b, obj.ngl) == (want.a, want.b, want.ngl) == (-200.0, 2600.0, 60)
+        np.testing.assert_array_equal(obj.x, want.x)
+        np.testing.assert_allclose(obj.gl_x, np.asarray(want.gl_x), rtol=1e-15, atol=1e-12)
+        np.testing.assert_allclose(obj.gl_w, np.asarray(want.gl_w), rtol=1e-14)
+    default = GPCSD1DSpatialCov(x)
+    assert (default.a, default.b, default.ngl) == (0.0, 2300.0, 100)
+
+
+def test_temporal_param_names():
+    from gpcsd_tpu.models.core import temporal_param_names as want
+    from gpcsd_tpu_torch.models.core import temporal_param_names
+
+    for n in (0, 1, 2, 3):
+        assert temporal_param_names(n) == want(n)
+    assert temporal_param_names(2) == [("tm0_ell", "tm0_sigma2"), ("tm1_ell", "tm1_sigma2")]
+    tm = port_of(jax_small_model())
+    names = [n for pair in temporal_param_names(len(tm.temporal_cov_list)) for n in pair]
+    assert set(names) <= set(tm._theta())

@@ -4,6 +4,7 @@ configuration, against the JAX package on CPU float64 and against the
 banked paper posterior.
 """
 
+import importlib.util
 import json
 import os
 import re
@@ -60,23 +61,28 @@ def value_grad(fn, u):
 
 class TestPackage:
     def test_imports_no_jax(self):
-        """The card has no JAX: importing the port must not load it."""
+        """The card has no JAX: importing every module of the port must not
+        load it (nor optax/orbax)."""
         code = (
-            "import sys, gpcsd_tpu_torch, gpcsd_tpu_torch.paper, gpcsd_tpu_torch.convert, "
-            "gpcsd_tpu_torch.infer.hmc, gpcsd_tpu_torch.infer.dense_metric, "
-            "gpcsd_tpu_torch.infer.nuts, gpcsd_tpu_torch.infer.diagnostics, "
-            "gpcsd_tpu_torch.models.inference_api, gpcsd_tpu_torch.models.gpcsd2d, "
-            "gpcsd_tpu_torch.infer.lbfgs, gpcsd_tpu_torch.infer.map, gpcsd_tpu_torch.ops.rff, "
-            "gpcsd_tpu_torch.ops.spatial, gpcsd_tpu_torch.ops.forward, gpcsd_tpu_torch.utils.grids, "
-            "gpcsd_tpu_torch.io, gpcsd_tpu_torch.io.checkpoint, gpcsd_tpu_torch.paper_run, "
-            "gpcsd_tpu_torch.infer.advi, gpcsd_tpu_torch.infer.smc, "
-            "gpcsd_tpu_torch.infer.model_comparison, gpcsd_tpu_torch.models.reparam; "
-            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "import importlib, pkgutil, sys, gpcsd_tpu_torch\n"
+            "mods = [m.name for m in pkgutil.walk_packages(gpcsd_tpu_torch.__path__, 'gpcsd_tpu_torch.')]\n"
+            "for m in mods: importlib.import_module(m)\n"
+            "print(len(mods), sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gpcsd_tpu', 'optax', 'orbax')))"
         )
         out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                              cwd=ROOT, check=True).stdout
-        assert out.strip() == "[]"
+        n_modules, loaded = out.strip().split(" ", 1)
+        assert loaded == "[]"
+        for name in ("native", "io.loaders", "io.nwb", "signal", "models.torus_graph",
+                     "models.shifts", "models.kcsd", "models.trad", "utils.segmentation",
+                     "workloads.neuropixels", "workloads.sim_from_gp_1d",
+                     "workloads.sim_from_gp_1d_mismatch", "workloads.sim_from_gp_2d",
+                     "workloads.simple_template_1d", "workloads.auditory_lfp",
+                     "workloads.fit_mean_function", "paper_run"):
+            spec = importlib.util.find_spec(f"gpcsd_tpu_torch.{name}")
+            assert spec is not None, name
+        assert int(n_modules) >= 60
         pat = re.compile(r"^\s*(import|from)\s+(jax|gpcsd_tpu|optax|orbax)\b", re.M)
         for dirpath, dirs, files in os.walk(os.path.join(ROOT, "gpcsd_tpu_torch")):
             dirs[:] = [d for d in dirs if d != "_build"]  # build outputs, not sources
