@@ -19,7 +19,9 @@ bootstrap, per-trial shifts) and the twins of the ``auditory_lfp`` and
 ``fit_mean_function`` workloads run at those workloads' full width, then
 the real-data modes on files the script writes, and the other five twins
 (``simple_template_1d``, ``sim_from_gp_1d``, the mismatch study,
-``sim_from_gp_2d``, ``neuropixels``) at their JAX defaults.
+``sim_from_gp_2d``, ``neuropixels``) at their JAX defaults, and the
+trial-sharded log-joint and the sharded drivers over ``torch.distributed``
+at the paper configuration.
 Phases, one JSON line each:
 
 1. device: torch/CUDA versions and the card's name and power limit;
@@ -117,12 +119,26 @@ Phases, one JSON line each:
 27. timing_analysis and timing_new_shapes: the kernel vs its plain version
    at the shapes the analysis stages and the other twins give it (device
    time, CUDA graph of 50 calls), each new shape first checked as in
-   phase 3.
+   phase 3;
+28. parallel (``gpcsd_tpu_torch/parallel/``, run before phase 27): (a)
+   ``parallel_ws1``, a process group of one rank over NCCL and the default
+   mesh: the trial-sharded value+grad at the banked centre and 3 jitters
+   against ``log_prob`` (bit for bit), its ms beside the unsharded ms, the
+   collectives' ms, ``sample_posterior(mesh=)`` 2 x (5 + 5) from prior draws
+   and ``advi(mesh=)`` against ``advi()``; (b) ``parallel_ranks``, two ranks
+   spawned on the one card over gloo with CUDA tensors (NCCL takes one rank
+   per GPU): at (chain=1, trial=2) the value+grad against the unsharded one
+   and against the two blocks' terms summed in one process, the collectives'
+   ms through the host, ``map_fit_sharded`` 2 x 10 and ``advi_sharded`` 12 x 8;
+   at (2, 1) ``map_fit_sharded``, ``smc_sharded`` (32 particles, 3 stages)
+   and ``nuts_sharded`` 2 x (3 + 3) against their unsharded twins; then the
+   kernel at the block's shape (24, 600, 50) as in phase 3 and 27.
 
 The quadform launch count is set to 0 before each stretch of the main path
 (log_prob + fit, hessian, nuts, log_prob_2d, fit_2d, reparam, advi, smc, ic,
-paper_run, the shifts phase's fit and its shift stage, workloads, and each
-twin's run in io, workloads_sim and workloads_2d) and read after it;
+paper_run, the shifts phase's fit and its shift stage, workloads, each
+twin's run in io, workloads_sim and workloads_2d, and each sharded call of
+the parallel phase, in this process and in each rank) and read after it;
 ``predict`` and the other outputs solve with the factors and launch no
 kernel.  Any failure raises and the script
 exits non-zero.  Without CUDA, or run outside a checkout of the repository,
@@ -548,12 +564,13 @@ def phase_smc(qf, gpu, cpu):
     an H100 is 9.8e-7, a ~1.4e-7 relative difference in the largest
     log-likelihoods (~1.4e6) times the temperature step."""
     from gpcsd_tpu_torch.infer.smc import smc_run
+    from gpcsd_tpu_torch.models.inference_api import prior_starts
 
     def evaluators(model):
         fns, Y = model._fns(), model._Y()
         return fns.log_prior_u, lambda u: fns.loglik(fns.param_set.unpack(u), Y)
 
-    p0 = gpu._prior_starts(gpu._fns(), 0, SMC_PARTICLES)
+    p0 = prior_starts(gpu._fns(), 0, SMC_PARTICLES)
     kw = dict(n_mutation_steps=SMC_MUTATIONS, chunk=16)
     qf.launch_count = 0
     torch.cuda.synchronize()
@@ -1402,6 +1419,362 @@ def phase_workloads_2d(qf, dev, smi):
     return by_shape
 
 
+# ------------------------------------------- parallel/: the (chain, trial) mesh
+
+#: the block each of two trial ranks holds of the main path's 100 trials
+SHAPE_SHARDED = (24, 600, 50)
+#: the parallel phase's runs: (a) world size 1, (b) two ranks on the card
+PAR_POSTERIOR = dict(n_chains=2, num_warmup=5, num_samples=5, max_depth=5)
+PAR_NUTS = dict(seed=0, n_chains=2, num_warmup=3, num_samples=3, max_depth=5)
+PAR_MAP = dict(seed=0, n_restarts=2, maxiter=10, ftol=1e7 * np.finfo(float).eps)
+PAR_SMC = dict(seed=0, n_particles=32, n_mutation_steps=2, max_stages=3)
+PAR_ADVI = dict(num_steps=12, n_mc=8)
+#: sharded against unsharded on the card: value (relative), gradient with
+#: one trial rank and, over two, the gradient and its temporal components
+#: (relative, in norm), MAP NLL (relative), SMC
+#: temperatures and evidence increments (relative), ADVI trace at world size
+#: 1 (relative), and the two ranks' reduced value and gradient against the
+#: sum of the two blocks' terms computed in one process ("blocks").  With one
+#: trial rank the arithmetic is the unsharded one, bit for bit.  Split over
+#: two trial ranks, the gradient moves by the roundoff of another order of
+#: the trial sum times the gap-regularized eigh backward's amplification
+#: (up to 1e12, the inverse of its regularization, inside the clusters of
+#: near-equal eigenvalues of Ks and Kt): H100 readings 7.2e-5 in norm, 3.0e-9
+#: on the temporal part (a CPU rehearsal at nt=100: 8.3e-6, 8.5e-12).  The
+#: unsharded gradient carries the same noise (the log_prob phase's
+#: card-vs-CPU bounds); these limits leave a factor of 14 and 300.  The MAP
+#: over two trial ranks follows that gradient, so its path is compared at
+#: (chain=2, trial=1) and held to consistency at (1, 2).
+TOL_PAR = {"value": 1e-12, "grad_one_rank": 1e-10, "grad": 1e-3, "grad_temporal": 1e-6,
+           "map_nll": 1e-8, "smc": 1e-9, "advi": 1e-9, "blocks": 1e-14}
+
+
+def par_points(u_center):
+    """The banked centre and 3 jitters of it (sd 1e-3 in u)."""
+    rng = np.random.default_rng(7)
+    return np.vstack([u_center, u_center + 1e-3 * rng.standard_normal((3, u_center.size))])
+
+
+def rel_rows(a, b):
+    """Largest relative difference of the rows of ``a`` and ``b`` in norm."""
+    a, b = torch.atleast_2d(a), torch.atleast_2d(b)
+    return float(((a - b).norm(dim=-1) / b.norm(dim=-1)).max())
+
+
+def sharded_value_grad(qf, fns, Y, mesh, us):
+    """Value and gradient of the sharded log-joint at the rows of ``us``
+    against ``fns.log_prob`` on the card.  Returns (value rel. error,
+    gradient rel. error in norm, the same of its temporal components,
+    launches by shape of the sharded call, the value and the gradient)."""
+    from gpcsd_tpu_torch.models.core import value_and_grad_rows
+    from gpcsd_tpu_torch.parallel import mesh as M
+    from gpcsd_tpu_torch.parallel import sharded as S
+
+    Yb = M.shard_trials(mesh, Y)
+    lp = S.make_trial_sharded_log_prob(fns, Y.shape[0], mesh)
+    u = torch.as_tensor(us, device=Y.device)
+    (v, g), _, _, by_shape = run_counted(qf, lambda: value_and_grad_rows(lambda x: lp(x, Yb), u))
+    v0, g0 = value_and_grad_rows(lambda x: fns.log_prob(x, Y), u)
+    return (float(((v - v0).abs() / v0.abs()).max()), rel_rows(g, g0),
+            rel_rows(g[:, 2:6], g0[:, 2:6]), by_shape, v, g)
+
+
+def blocks_value_grad(fns, Y, n_blocks, us):
+    """The sharded log-joint's value and gradient at the rows of ``us``
+    computed in one process: each trial block's term (its quadratic term,
+    and its share of the log-determinant and prior, as
+    ``make_trial_sharded_log_prob`` forms it) differentiated alone, and the
+    values and gradients summed, which is what the all-reduces do."""
+    from gpcsd_tpu_torch.models.core import value_and_grad_rows
+    from gpcsd_tpu_torch.ops import kronlik
+
+    n = Y.shape[0]
+
+    def term(x, Yl):
+        fac = fns.build_factors(fns.param_set.unpack(x))
+        logdet = n * (torch.sum(torch.log(fac.d), dim=(-2, -1)) + fac.logdet_offset)
+        return -0.5 * (logdet / n_blocks + kronlik.quad_term(fac, Yl)) + fns.log_prior_u(x) / n_blocks
+
+    u = torch.as_tensor(us, device=Y.device)
+    parts = [value_and_grad_rows(lambda x: term(x, Yl), u) for Yl in Y.chunk(n_blocks)]
+    return sum(p[0] for p in parts), sum(p[1] for p in parts)
+
+
+def collective_ms(group, dim, dev, reps=50):
+    """Milliseconds of the collectives of one value+grad of one row: an
+    all-reduce of the value and one of the (1, dim) gradient over
+    ``group``, synchronised, after a warm-up."""
+    import torch.distributed as dist
+
+    a = torch.zeros(1, dtype=torch.float64, device=dev)
+    b = torch.zeros(1, dim, dtype=torch.float64, device=dev)
+    for _ in range(5):
+        dist.all_reduce(a, group=group)
+        dist.all_reduce(b, group=group)
+    _, seconds = sync_seconds(lambda: [(dist.all_reduce(a, group=group),
+                                        dist.all_reduce(b, group=group)) for _ in range(reps)])
+    return 1e3 * seconds / reps
+
+
+def phase_parallel_ws1(qf, gpu, us, smi):
+    """(a) The one-card user's path: a process group of one rank over NCCL
+    and the default mesh.  The sharded value+grad at ``us`` against the
+    unsharded one, ``sample_posterior(mesh=)`` from prior draws, and
+    ``advi(mesh=)`` against ``advi()``.  Returns the launches by shape of
+    the sharded calls."""
+    import torch.distributed as dist
+    from gpcsd_tpu_torch.models.core import value_and_grad_rows
+    from gpcsd_tpu_torch.parallel import mesh as M
+    from gpcsd_tpu_torch.parallel import sharded as S
+
+    fns, Y = gpu._fns(), gpu._Y()
+    t0 = time.perf_counter()
+    M.init_distributed(num_processes=1)
+    try:
+        mesh = M.make_mesh(device_type=Y.device.type)
+        val, grad, grad_t, by_vg, _, _ = sharded_value_grad(qf, fns, Y, mesh, us)
+        Yb = M.shard_trials(mesh, Y)
+        lp = S.make_trial_sharded_log_prob(fns, Y.shape[0], mesh)
+        u1 = torch.as_tensor(us[:1], device=Y.device)
+        sharded = lambda: value_and_grad_rows(lambda x: lp(x, Yb), u1)  # noqa: E731
+        plain = lambda: value_and_grad_rows(lambda x: fns.log_prob(x, Y), u1)  # noqa: E731
+        runs = [1e3 * np.mean([sync_seconds(f)[1] for _ in range(5)])
+                for f in (plain, sharded, sharded, plain)]
+        coll = collective_ms(mesh.get_group("trial"), us.shape[1], Y.device)
+        post, post_s, _, by_post = run_counted(qf, lambda: gpu.sample_posterior(mesh=mesh, **PAR_POSTERIOR))
+        adv, adv_s, _, by_advi = run_counted(qf, lambda: gpu.advi(mesh=mesh, **PAR_ADVI))
+        adv_trace = adv.diagnostics["elbo"]
+        want = gpu.advi(**PAR_ADVI).diagnostics["elbo"]
+    finally:
+        dist.destroy_process_group()
+    seconds = time.perf_counter() - t0
+    samples = post.raw.samples.cpu().numpy()
+    advi_rel = float(np.max(np.abs(adv_trace - want) / np.abs(want)))
+    launches = {"value_grad": sum(by_vg.values()), "sample_posterior": sum(by_post.values()),
+                "advi": sum(by_advi.values())}
+    emit("parallel_ws1", card=smi, backend="nccl", world_size=1, seconds=seconds,
+         value_rel_err=val, grad_rel_err=grad, grad_temporal_rel_err=grad_t,
+         value_grad_ms_unsharded=runs[::3],
+         value_grad_ms_sharded=runs[1:3], collective_ms_per_value_grad=coll,
+         sample_posterior_seconds=post_s, sample_posterior_shape=list(samples.shape),
+         advi_seconds=adv_s, advi_trace_rel_err_vs_unsharded=advi_rel, launches=launches)
+    check(val <= TOL_PAR["value"], f"parallel_ws1: sharded value off by {val}")
+    check(grad <= TOL_PAR["grad_one_rank"], f"parallel_ws1: sharded gradient off by {grad}")
+    check(samples.shape == (2, 5, us.shape[1]) and np.isfinite(samples).all(),
+          f"parallel_ws1: sample_posterior(mesh=) draws of shape {samples.shape} or not finite")
+    check(np.isfinite(adv_trace).all(), "parallel_ws1: an ELBO of advi(mesh=) is not finite")
+    check(advi_rel <= TOL_PAR["advi"], f"parallel_ws1: advi(mesh=) trace off by {advi_rel}")
+    check(all(launches.values()), f"parallel_ws1: a sharded call launched no kernel: {launches}")
+    return merge_counts(by_vg, by_post, by_advi)
+
+
+def _parallel_rank(rank, device, init_file, lfp, time_ms, us, results):
+    """One of the two ranks of :func:`phase_parallel_ranks`; puts its dict
+    (or its traceback) on ``results``."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        results.put(_parallel_rank_cases(rank, device, init_file, lfp, time_ms, us))
+    except BaseException:
+        results.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _parallel_rank_cases(rank, device, init_file, lfp, time_ms, us):
+    """(b) on one rank of two, gloo with the card's tensors: the sharded
+    value+grad, MAP and ADVI at (chain=1, trial=2), MAP, SMC and NUTS at
+    (2, 1); rank 0 also runs each unsharded twin from the same starts and
+    random numbers.  At (2, 1) a rank runs one restart or chain, so their
+    twins run one at a time: cuSOLVER factors a batch of small matrices
+    (Ks, 24 x 24) by another algorithm than a single one, which would move
+    the last bits."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from gpcsd_tpu_torch import paper
+    from gpcsd_tpu_torch.infer.advi import advi_fit
+    from gpcsd_tpu_torch.infer.lbfgs import lbfgs_minimize
+    from gpcsd_tpu_torch.infer.map import sample_restarts
+    from gpcsd_tpu_torch.infer.nuts import chain_generators, nuts_chains
+    from gpcsd_tpu_torch.infer.smc import smc_run
+    from gpcsd_tpu_torch.models.inference_api import prior_starts, stream_generator
+    from gpcsd_tpu_torch.ops.cuda import quadform as qf
+    from gpcsd_tpu_torch.parallel import mesh as M
+    from gpcsd_tpu_torch.parallel import sharded as S
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    M.init_distributed(f"file://{init_file}", 2, rank, backend="gloo")
+    # gloo must take the card's tensors for both collectives the drivers use
+    x = torch.full((3,), rank + 1.0, dtype=torch.float64, device=dev)
+    dist.all_reduce(x)
+    parts = [torch.empty(2, dtype=torch.float64, device=dev) for _ in range(2)]
+    dist.all_gather(parts, torch.full((2,), float(rank), dtype=torch.float64, device=dev))
+    check(x.device == dev and x.tolist() == [3.0] * 3, f"gloo all_reduce on {dev} gave {x}")
+    check(all(p.device == dev for p in parts) and [p.tolist() for p in parts] == [[0.0] * 2, [1.0] * 2],
+          f"gloo all_gather on {dev} gave {parts}")
+
+    model = paper.build_model(lfp, time_ms, het_noise="exact", device=dev)
+    fns, Y = model._fns(), model._Y()
+    mesh12 = M.make_mesh(chain=1, trial=2, device_type=dev.type)
+    mesh21 = M.make_mesh(chain=2, trial=1, device_type=dev.type)
+    out, by_phase, seconds = {"rank": rank}, {}, {}
+    (out["value_rel_err"], out["grad_rel_err"], out["grad_temporal_rel_err"],
+     by_phase["value_grad"], v, g) = sharded_value_grad(qf, fns, Y, mesh12, us)
+    out["value_grad"] = (v.cpu().numpy(), g.cpu().numpy())
+    out["collective_ms_per_value_grad"] = collective_ms(mesh12.get_group("trial"), us.shape[1], dev)
+    runs = {
+        "map12": lambda: S.map_fit_sharded(fns, Y, mesh12, **PAR_MAP),
+        "advi12": lambda: S.advi_sharded(fns, Y, mesh12, 0, **PAR_ADVI),
+        "map21": lambda: S.map_fit_sharded(fns, Y, mesh21, **PAR_MAP),
+        "smc21": lambda: S.smc_sharded(fns, Y, mesh21, chunk=16, **PAR_SMC),
+        "nuts21": lambda: S.nuts_sharded(fns, Y, mesh21, **PAR_NUTS),
+    }
+    res = {}
+    for name, fn in runs.items():
+        res[name], seconds[name], _, by_phase[name] = run_counted(qf, fn)
+    out["by_phase"], out["seconds"] = by_phase, seconds
+    out["map12_u"], out["map12_nll"] = res["map12"]
+    out["map21_nll"] = res["map21"][1]
+    out["advi12_trace"] = res["advi12"].elbo_trace.cpu().numpy()
+    out["smc21_temperatures"] = res["smc21"].temperatures.cpu().numpy()
+    out["smc21_increments"] = res["smc21"].log_evidence_increments.cpu().numpy()
+    out["nuts21_samples"] = res["nuts21"].samples.cpu().numpy()
+    if rank != 0:
+        return out
+    # the unsharded twins
+    vb, gb = blocks_value_grad(fns, Y, 2, us)
+    out["blocks_value_rel_err"] = float(((v - vb).abs() / vb.abs()).max())
+    out["blocks_grad_rel_err"] = rel_rows(g, gb)
+    lo, hi = fns.param_set.bounds()
+    u0s = torch.as_tensor(sample_restarts(fns.param_set, np.random.default_rng(PAR_MAP["seed"]),
+                                          PAR_MAP["n_restarts"]), device=dev)
+    def lbfgs(u):
+        res = lbfgs_minimize(lambda x: -fns.log_prob(x, Y), u, lo=lo, hi=hi,
+                             max_iter=PAR_MAP["maxiter"], ftol=PAR_MAP["ftol"])
+        return torch.where(res.failed, torch.inf, res.f).cpu().numpy()
+
+    with torch.no_grad():
+        out["map_nll_start"] = (-fns.log_prob(u0s, Y)).cpu().numpy()
+        out["map12_nll_at_u"] = (-fns.log_prob(torch.as_tensor(out["map12_u"], device=dev), Y)
+                                 ).cpu().numpy()
+    out["map_nll_unsharded"] = lbfgs(u0s)
+    out["map_nll_unsharded_one_by_one"] = np.concatenate([lbfgs(u[None]) for u in u0s])
+    out["advi_trace_unsharded"] = advi_fit(
+        lambda u: fns.log_prob(u, Y), torch.as_tensor(prior_starts(fns, 0, 1)[0], device=dev),
+        stream_generator(0, 1), **PAR_ADVI).elbo_trace.cpu().numpy()
+    seed, n = PAR_SMC["seed"], PAR_SMC["n_particles"]
+    smc = smc_run(fns.log_prior_u, lambda u: fns.loglik(fns.param_set.unpack(u), Y),
+                  torch.as_tensor(prior_starts(fns, seed, n), device=dev), stream_generator(seed, 1),
+                  n_mutation_steps=PAR_SMC["n_mutation_steps"], max_stages=PAR_SMC["max_stages"],
+                  chunk=16)
+    out["smc_temperatures_unsharded"] = smc.temperatures.cpu().numpy()
+    out["smc_increments_unsharded"] = smc.log_evidence_increments.cpu().numpy()
+    seed, n = PAR_NUTS["seed"], PAR_NUTS["n_chains"]
+    kw = {k: v for k, v in PAR_NUTS.items() if k not in ("seed", "n_chains")}
+    u0s, gens = torch.as_tensor(prior_starts(fns, seed, n), device=dev), chain_generators(seed, n)
+    out["nuts_samples_unsharded_one_by_one"] = np.concatenate([
+        nuts_chains(lambda u: fns.log_prob(u, Y), u0s[i:i + 1], gens[i:i + 1], **kw
+                    ).samples.cpu().numpy() for i in range(n)])
+    return out
+
+
+def max_rel_diff(a, b):
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def phase_parallel_ranks(lfp, time_ms, us, dev, smi, timeout=600.0):
+    """(b) Two ranks spawned on the one card (NCCL refuses two ranks on one
+    GPU, so gloo with the card's tensors): :func:`_parallel_rank_cases` on
+    each, checked here.  Returns the ranks' launches by run and by shape."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        init_file = os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=_parallel_rank,
+                             args=(r, str(dev), init_file, lfp, time_ms, us, results))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        out = []
+        try:
+            while len(out) < len(procs):  # drain before joining; stop at a failure
+                out.append(results.get(timeout=timeout))
+                check("error" not in out[-1],
+                      f"parallel rank {out[-1]['rank']} failed:\n{out[-1].get('error')}")
+        except queue.Empty:
+            raise RuntimeError(f"parallel: {2 - len(out)} ranks did not report in {timeout} s") from None
+        finally:
+            for p in procs:
+                p.join(timeout=30 if len(out) == len(procs) else 0)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=30)
+        seconds = time.perf_counter() - t0
+    r0, r1 = sorted(out, key=lambda o: o["rank"])
+    ladder_same = r0["smc21_temperatures"].shape == r0["smc_temperatures_unsharded"].shape
+    smc_t = smc_i = float("inf")
+    if ladder_same:
+        smc_t = max_rel_diff(r0["smc21_temperatures"], r0["smc_temperatures_unsharded"])
+        smc_i = max_rel_diff(r0["smc21_increments"], r0["smc_increments_unsharded"])
+    fields = dict(
+        value_rel_err=max(r0["value_rel_err"], r1["value_rel_err"]),
+        grad_rel_err=max(r0["grad_rel_err"], r1["grad_rel_err"]),
+        grad_temporal_rel_err=max(r0["grad_temporal_rel_err"], r1["grad_temporal_rel_err"]),
+        blocks_value_rel_err=r0["blocks_value_rel_err"], blocks_grad_rel_err=r0["blocks_grad_rel_err"],
+        map21_nll_rel_err=max_rel_diff(r0["map21_nll"], r0["map_nll_unsharded_one_by_one"]),
+        map12_nll_rel_diff_vs_unsharded=max_rel_diff(r0["map12_nll"], r0["map_nll_unsharded"]),
+        map12_nll_rel_err_vs_log_prob=max_rel_diff(r0["map12_nll"], r0["map12_nll_at_u"]),
+        advi12_trace_rel_diff_vs_unsharded=max_rel_diff(r0["advi12_trace"],
+                                                        r0["advi_trace_unsharded"]),
+        smc21_temperature_rel_err=smc_t, smc21_increment_rel_err=smc_i,
+        nuts21_max_abs_diff_vs_unsharded=float(np.max(np.abs(
+            r0["nuts21_samples"] - r0["nuts_samples_unsharded_one_by_one"]))),
+    )
+    by_phase = {ph: merge_counts(r0["by_phase"][ph], r1["by_phase"][ph]) for ph in r0["by_phase"]}
+    emit("parallel_ranks", card=smi, backend="gloo", world_size=2, seconds=seconds, **fields,
+         collective_ms_per_value_grad=[r0["collective_ms_per_value_grad"],
+                                       r1["collective_ms_per_value_grad"]],
+         map_nll_start=r0["map_nll_start"].tolist(), map12_nll=r0["map12_nll"].tolist(),
+         map_nll_unsharded=r0["map_nll_unsharded"].tolist(),
+         map_nll_unsharded_one_by_one=r0["map_nll_unsharded_one_by_one"].tolist(),
+         smc21_stages=r0["smc21_temperatures"].size,
+         run_seconds=r0["seconds"],
+         launches_by_run={ph: {shape_key(k): v for k, v in d.items()} for ph, d in by_phase.items()})
+    for k in ("value", "grad", "grad_temporal"):
+        check(fields[f"{k}_rel_err"] <= TOL_PAR[k], f"parallel_ranks: sharded {k} off by "
+              f"{fields[f'{k}_rel_err']}")
+    for k in ("blocks_value", "blocks_grad"):
+        check(fields[f"{k}_rel_err"] <= TOL_PAR["blocks"], f"parallel_ranks: sharded {k} off by "
+              f"{fields[f'{k}_rel_err']}")
+    check(all(np.array_equal(a, b) for a, b in zip(r0["value_grad"], r1["value_grad"])),
+          "parallel_ranks: the two ranks' value or gradient differ")
+    for k in ("map12_u", "map12_nll", "map21_nll", "advi12_trace", "smc21_temperatures",
+              "smc21_increments", "nuts21_samples"):
+        check(np.array_equal(r0[k], r1[k]), f"parallel_ranks: the two ranks' {k} differ")
+    check(fields["map21_nll_rel_err"] <= TOL_PAR["map_nll"],
+          f"parallel_ranks: MAP at (2, 1) off by {fields['map21_nll_rel_err']}")
+    check(np.all(r0["map12_nll"] <= r0["map_nll_start"]), "parallel_ranks: a MAP restart rose")
+    check(fields["map12_nll_rel_err_vs_log_prob"] <= 1e-12,
+          "parallel_ranks: the MAP's reported NLL is not -log_prob at its u")
+    check(np.isfinite(r0["advi12_trace"]).all(), "parallel_ranks: an ELBO of advi_sharded is not finite")
+    check(ladder_same and smc_t <= TOL_PAR["smc"] and smc_i <= TOL_PAR["smc"],
+          f"parallel_ranks: SMC ladder or increments off ({smc_t}, {smc_i})")
+    check(np.isfinite(r0["nuts21_samples"]).all(), "parallel_ranks: a NUTS draw is not finite")
+    return by_phase
+
+
 def npx_shapes(by_shape):
     """The Neuropixels twin's shapes among ``by_shape``'s keys."""
     return sorted(k for k in by_shape if k[:2] == (NPX_NX, NPX_NT))
@@ -1518,6 +1891,16 @@ def main():
     wl_sim = phase_workloads_sim(qf, dev, smi)
     wl_2d = phase_workloads_2d(qf, dev, smi)
 
+    # ---- parallel/: one rank over NCCL, then two gloo ranks on the one card
+    # (the kernel library is built above, so the ranks only load it)
+    us_par = par_points(u_center)
+    ws1 = phase_parallel_ws1(qf, gpu, us_par, smi)
+    launches_by_phase["parallel_ws1"] = ws1.get(SHAPE_1D, 0)
+    par = phase_parallel_ranks(lfp, time_ms, us_par, dev, smi)
+    launches_by_phase["parallel_ranks"] = sum(d.get(SHAPE_1D, 0) for d in par.values())
+    par_sharded = {ph: d.get(SHAPE_SHARDED, 0) for ph, d in par.items() if d.get(SHAPE_SHARDED, 0)}
+    check(sum(par_sharded.values()) > 0, f"the trial-sharded block {SHAPE_SHARDED} launched no kernel")
+
     launches_2d = {"log_prob_2d": launches_log_prob_2d, "fit_2d": launches_fit_2d}
     emit("timing_2d", **timing_2d, **profile_2d(gpu2d))
     analysis = {}
@@ -1547,6 +1930,12 @@ def main():
         new_times[shape] = (kt["quadform_device_ms"], kt["quadform_plain_device_ms"],
                             *quadform_bound_ms(*shape))
         emit("timing_new_shapes", **kt)
+
+    abs_err[SHAPE_SHARDED] = check_kernel(qf, SHAPE_SHARDED, dev, gen)
+    kt = kernel_times(qf, SHAPE_SHARDED, dev)
+    emit("timing_sharded", **kt)
+    new_times[SHAPE_SHARDED] = (kt["quadform_device_ms"], kt["quadform_plain_device_ms"],
+                                *quadform_bound_ms(*SHAPE_SHARDED))
 
     bound_ms, bound_by = quadform_bound_ms(*SHAPE_1D)
     print(smi)
@@ -1580,6 +1969,11 @@ def main():
            "max_abs_err": abs_err[shape], "ms": new_times[shape][0], "plain_ms": new_times[shape][1],
            "bound_ms": new_times[shape][2], "bound_by": new_times[shape][3]}
           for label, shape in new_rows),
+        {"name": "quadform at the trial-sharded block", "shape": list(SHAPE_SHARDED), **common,
+         "launches": sum(par_sharded.values()), "launches_by_phase": par_sharded,
+         "max_abs_err": abs_err[SHAPE_SHARDED], "ms": new_times[SHAPE_SHARDED][0],
+         "plain_ms": new_times[SHAPE_SHARDED][1], "bound_ms": new_times[SHAPE_SHARDED][2],
+         "bound_by": new_times[SHAPE_SHARDED][3]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -5,7 +5,8 @@ the hyperparameters on the model's log-joint, returning *constrained*
 per-name samples so downstream analysis never touches the unconstrained
 space, the Laplace (MAP-Hessian) whitening that makes the 30-dimensional
 paper posterior samplable, and WAIC / PSIS-LOO over a stored posterior.
-The multi-chip ``mesh`` routes of the JAX mixin have no counterpart.
+With ``mesh=`` the three samplers run SPMD over the ranks of a
+``(chain, trial)`` mesh (:mod:`gpcsd_tpu_torch.parallel`).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from ..infer import model_comparison as mc
 from ..infer.advi import advi_fit
 from ..infer.diagnostics import ess_bulk, ess_tail, rhat
+from ..infer.map import sample_restarts
 from ..infer.nuts import chain_generators, nuts_chains
 from ..infer.smc import smc_run
 from .core import ModelFns, value_and_grad_rows
@@ -102,11 +104,18 @@ def _laplace_maps(fns, u_center, Y, H, J=None):
     return whitening_from_hessian(H)
 
 
-def _generator(seed, k):
+def stream_generator(seed: int, k: int) -> torch.Generator:
     """A CPU ``torch.Generator`` seeded from ``(seed, k)``: stream ``k`` of
     an entry point's random numbers."""
     state = np.random.SeedSequence([seed, k]).generate_state(1, dtype=np.uint64)[0]
     return torch.Generator().manual_seed(int(state >> np.uint64(1)))
+
+
+def prior_starts(fns: ModelFns, seed: int, n: int) -> np.ndarray:
+    """(n, dim) prior draws in u clipped into the parameter box, from
+    ``numpy.random.default_rng([seed, 0])``: the samplers' starts, with or
+    without a mesh."""
+    return sample_restarts(fns.param_set, np.random.default_rng([seed, 0]), n)
 
 
 class InferenceAPIMixin:
@@ -132,13 +141,6 @@ class InferenceAPIMixin:
             for name in ps.names
         ], axis=1)
 
-    def _prior_starts(self, fns, seed, n):
-        """(n, dim) prior draws in u clipped into the parameter box, from
-        ``numpy.random.default_rng([seed, 0])``."""
-        rng = np.random.default_rng([seed, 0])
-        u = np.stack([fns.param_set.pack(fns.param_set.sample(rng)).numpy() for _ in range(n)])
-        return fns.param_set.clip_to_bounds(torch.as_tensor(u)).numpy()
-
     def sample_posterior(
         self,
         n_chains=4,
@@ -148,11 +150,12 @@ class InferenceAPIMixin:
         fix_R=False,
         max_depth=10,
         target_accept=0.8,
+        mesh=None,
         set_posterior_mean=False,
         pool_warmup=False,
         callback=None,
         init="params_jitter",
-        laplace=True,
+        laplace=None,
         laplace_hessian=None,
         dense_mass=False,
         reparam=None,
@@ -162,6 +165,15 @@ class InferenceAPIMixin:
         """NUTS posterior over hyperparameters, chains batched on the
         model's device.
 
+        :param mesh: a ``(chain, trial)`` mesh
+            (:func:`gpcsd_tpu_torch.parallel.mesh.make_mesh`): every rank of
+            the default group calls this with the same arguments, and
+            :func:`gpcsd_tpu_torch.parallel.sharded.nuts_sharded` runs the
+            chains split over ``chain`` and the trials over ``trial``, from
+            prior draws, unwhitened.  ``pool_warmup``, ``callback``,
+            ``laplace``, ``reparam`` and ``state_path`` are refused there;
+            ``init`` and ``laplace_hessian`` do not apply.  A rank outside the
+            mesh gets None and stores nothing.
         :param set_posterior_mean: write posterior-mean params back into the
             model (analogous to ``fit`` writing back the MAP).
         :param pool_warmup: share mass-matrix adaptation statistics across
@@ -174,7 +186,8 @@ class InferenceAPIMixin:
             millions of log-units from the posterior bulk at real problem
             sizes, and warmup spent descending that cliff diverges
             constantly and poisons step-size adaptation.
-        :param laplace: sample in the MAP-Hessian-whitened space
+        :param laplace: (None: on without a mesh) sample in the
+            MAP-Hessian-whitened space
             ``u = u0 + H^{-1/2} v`` (run ``fit`` first so the centre is the
             MAP).  The hyperparameter posterior at real data sizes is a
             strongly correlated ridge that a diagonal mass matrix cannot
@@ -202,6 +215,26 @@ class InferenceAPIMixin:
         """
         fns = self._fns(fix_R=fix_R)
         Y = self._Y()
+        if mesh is not None:
+            # the sharded driver has no pooling, checkpointing or whitening:
+            # refuse rather than silently drop what the caller asked for
+            asked = {"pool_warmup": pool_warmup, "state_path": state_path,
+                     "callback": callback, "laplace": laplace, "reparam": reparam}
+            bad = [k for k, v in asked.items() if v]
+            if bad:
+                raise ValueError(f"sample_posterior(mesh=...) does not support {bad}; "
+                                 "these are single-device options")
+            from ..parallel.sharded import nuts_sharded
+
+            res = nuts_sharded(fns, Y, mesh, seed, n_chains, num_warmup=num_warmup,
+                               num_samples=num_samples, max_depth=max_depth,
+                               target_accept=target_accept, dense_mass=dense_mass)
+            if res is None:
+                return None
+            return self._store_nuts(fns, res, set_posterior_mean)
+
+        if laplace is None:
+            laplace = True
         dev, f64 = self.device, torch.float64
         u_center = fns.param_set.pack(self._theta()).cpu().numpy()
         dim = u_center.shape[0]
@@ -253,7 +286,7 @@ class InferenceAPIMixin:
             u0s = fns.param_set.clip_to_bounds(torch.as_tensor(
                 to_u(scale * rng.standard_normal((n_chains, dim))))).numpy()
         elif init == "prior":
-            u0s = self._prior_starts(fns, seed, n_chains)
+            u0s = prior_starts(fns, seed, n_chains)
         else:
             raise ValueError(f"unknown init {init!r}")
         v0s = from_u(u0s)
@@ -279,7 +312,12 @@ class InferenceAPIMixin:
         with torch.no_grad():
             r = (c_t + res.samples @ A_t).reshape(-1, dim)
             res = res._replace(samples=from_r_t(r).reshape(res.samples.shape))
+        return self._store_nuts(fns, res, set_posterior_mean)
 
+    def _store_nuts(self, fns, res, set_posterior_mean):
+        """Store the ``NUTSResult`` ``res`` (draws in u) with its diagnostics
+        as the model's :class:`PosteriorSamples`, and return it."""
+        n_chains, num_samples, dim = res.samples.shape
         samples = res.samples.cpu().numpy()
         flat = samples.reshape(-1, dim)
         diagnostics = {
@@ -294,7 +332,7 @@ class InferenceAPIMixin:
             diagnostics["ess"] = dict(zip(names, ess_bulk(samples)))
             diagnostics["ess_tail"] = dict(zip(names, ess_tail(samples)))
         if set_posterior_mean:
-            mean_u = torch.as_tensor(flat.mean(axis=0), dtype=f64, device=dev)
+            mean_u = torch.as_tensor(flat.mean(axis=0), dtype=torch.float64, device=self.device)
             self._set_theta(fns.full_theta(fns.param_set.unpack(mean_u)))
         self.posterior = PosteriorSamples(
             theta=self._constrain_batch(fns, flat), raw=res, diagnostics=diagnostics
@@ -302,17 +340,31 @@ class InferenceAPIMixin:
         return self.posterior
 
     def advi(self, num_steps=3000, n_mc=8, learning_rate=0.02, seed=0, fix_R=False,
-             n_draws=1000) -> PosteriorSamples:
+             n_draws=1000, mesh=None) -> PosteriorSamples:
         """Mean-field ADVI posterior approximation, started at a prior draw
-        clipped into the parameter box."""
+        clipped into the parameter box.
+
+        :param mesh: a ``(chain, trial)`` mesh: the trial terms summed over
+            its ``trial`` axis (:func:`gpcsd_tpu_torch.parallel.sharded.advi_sharded`),
+            the same start and draws.  None and nothing stored on a rank
+            outside it.
+        """
         fns = self._fns(fix_R=fix_R)
         Y = self._Y()
-        u0 = torch.as_tensor(self._prior_starts(fns, seed, 1)[0], device=self.device)
-        res = advi_fit(
-            lambda u: fns.log_prob(u, Y), u0, _generator(seed, 1),
-            num_steps=num_steps, n_mc=n_mc, learning_rate=learning_rate,
-        )
-        draws = res.sample(_generator(seed, 2), n_draws).cpu().numpy()
+        if mesh is None:
+            u0 = torch.as_tensor(prior_starts(fns, seed, 1)[0], device=self.device)
+            res = advi_fit(
+                lambda u: fns.log_prob(u, Y), u0, stream_generator(seed, 1),
+                num_steps=num_steps, n_mc=n_mc, learning_rate=learning_rate,
+            )
+        else:
+            from ..parallel.sharded import advi_sharded
+
+            res = advi_sharded(fns, Y, mesh, seed, num_steps=num_steps, n_mc=n_mc,
+                               learning_rate=learning_rate)
+            if res is None:
+                return None
+        draws = res.sample(stream_generator(seed, 2), n_draws).cpu().numpy()
         self.posterior = PosteriorSamples(
             theta=self._constrain_batch(fns, draws),
             raw=res,
@@ -321,21 +373,35 @@ class InferenceAPIMixin:
         return self.posterior
 
     def smc(self, n_particles=1024, n_mutation_steps=10, seed=0, fix_R=False,
-            batch=64) -> PosteriorSamples:
+            batch=64, mesh=None) -> PosteriorSamples:
         """Adaptive tempered SMC posterior (prior -> posterior).
 
         :param batch: particles per batched evaluation of the prior and
             the likelihood (bounds the memory of the batched factors).
+        :param mesh: a ``(chain, trial)`` mesh: particle likelihoods split
+            over its ``chain`` axis (``batch`` rows at a time within a
+            rank's block) and trial terms summed over ``trial``
+            (:func:`gpcsd_tpu_torch.parallel.sharded.smc_sharded`;
+            ``n_particles`` padded up to a multiple of the chain size).  None
+            and nothing stored on a rank outside it.
         """
         fns = self._fns(fix_R=fix_R)
         Y = self._Y()
-        particles0 = torch.as_tensor(self._prior_starts(fns, seed, n_particles), device=self.device)
-        res = smc_run(
-            fns.log_prior_u,
-            lambda u: fns.loglik(fns.param_set.unpack(u), Y),
-            particles0, _generator(seed, 1),
-            n_mutation_steps=n_mutation_steps, chunk=batch,
-        )
+        if mesh is None:
+            particles0 = torch.as_tensor(prior_starts(fns, seed, n_particles), device=self.device)
+            res = smc_run(
+                fns.log_prior_u,
+                lambda u: fns.loglik(fns.param_set.unpack(u), Y),
+                particles0, stream_generator(seed, 1),
+                n_mutation_steps=n_mutation_steps, chunk=batch,
+            )
+        else:
+            from ..parallel.sharded import smc_sharded
+
+            res = smc_sharded(fns, Y, mesh, seed, n_particles=n_particles,
+                              n_mutation_steps=n_mutation_steps, chunk=batch)
+            if res is None:
+                return None
         self.posterior = PosteriorSamples(
             theta=self._constrain_batch(fns, res.particles.cpu().numpy()),
             raw=res,

@@ -171,29 +171,33 @@ def whiten(factors: KronFactors, Y):
     return factors.qs.mT @ Y @ factors.qt
 
 
+def quad_term(factors: KronFactors, Y):
+    """``sum_b vec(Y_b)^T K^{-1} vec(Y_b)`` over the trials Y (..., nx, nt),
+    through :func:`quadform`: the CUDA kernel on the card, its plain
+    version on the CPU.  Batched factors ``(C, ...)`` give ``(C,)`` values
+    of the same trials, with one :func:`quadform` call (one kernel launch)
+    per row: the kernel takes one ``(qs, qt, dinv)``."""
+    nx, nt = Y.shape[-2:]
+    Yb = Y.reshape(-1, nx, nt).contiguous()
+    dinv = 1.0 / factors.d
+    if dinv.ndim == 2:
+        return quadform(factors.qs.contiguous(), factors.qt.contiguous(), dinv.contiguous(), Yb)
+    return torch.stack([
+        quadform(qs.contiguous(), qt.contiguous(), di.contiguous(), Yb)
+        for qs, qt, di in zip(factors.qs, factors.qt, dinv)
+    ])
+
+
 def loglik(factors: KronFactors, Y):
     """Marginal log-likelihood of trials Y (..., nx, nt); sums trial axes.
 
     Drops the -0.5*n*log(2*pi) constant, matching reference ``loglik``
-    (``gpcsd1d.py:113-128``).  The quadratic term goes through
-    :func:`quadform`: the CUDA kernel on the card, its plain version on
-    the CPU.  Batched factors ``(C, ...)`` give ``(C,)`` values of the
-    same trials, with one :func:`quadform` call (one kernel launch) per
-    row: the kernel takes one ``(qs, qt, dinv)``.
+    (``gpcsd1d.py:113-128``).  The quadratic term is :func:`quad_term`;
+    batched factors ``(C, ...)`` give ``(C,)`` values.
     """
-    nx, nt = Y.shape[-2:]
-    Yb = Y.reshape(-1, nx, nt).contiguous()
-    ntrials = Yb.shape[0]
-    dinv = 1.0 / factors.d
-    if dinv.ndim == 2:
-        quad = quadform(factors.qs.contiguous(), factors.qt.contiguous(), dinv.contiguous(), Yb)
-    else:
-        quad = torch.stack([
-            quadform(qs.contiguous(), qt.contiguous(), di.contiguous(), Yb)
-            for qs, qt, di in zip(factors.qs, factors.qt, dinv)
-        ])
+    ntrials = Y[..., 0, 0].numel()
     logdet = ntrials * (torch.sum(torch.log(factors.d), dim=(-2, -1)) + factors.logdet_offset)
-    return -0.5 * (logdet + quad)
+    return -0.5 * (logdet + quad_term(factors, Y))
 
 
 def kron_solve(factors: KronFactors, Y):

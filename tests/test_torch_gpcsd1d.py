@@ -79,7 +79,8 @@ class TestPackage:
                      "workloads.neuropixels", "workloads.sim_from_gp_1d",
                      "workloads.sim_from_gp_1d_mismatch", "workloads.sim_from_gp_2d",
                      "workloads.simple_template_1d", "workloads.auditory_lfp",
-                     "workloads.fit_mean_function", "paper_run"):
+                     "workloads.fit_mean_function", "paper_run", "parallel.mesh",
+                     "parallel.sharded"):
             spec = importlib.util.find_spec(f"gpcsd_tpu_torch.{name}")
             assert spec is not None, name
         assert int(n_modules) >= 60

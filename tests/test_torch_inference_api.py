@@ -223,13 +223,11 @@ def test_set_posterior_mean(small_model):
 
 def test_unknown_keywords_raise(small_model):
     """Arguments of the JAX ``sample_posterior`` that the port does not
-    take are absent, not accepted and ignored."""
-    for kw in ({"mesh": None}, {"chunk_size": 10}, {"warm_basis": True}, {"precondition": True}):
+    take are absent, not accepted and ignored (``mesh`` it takes, as
+    ``advi`` and ``smc`` do: ``tests/test_torch_parallel.py``)."""
+    for kw in ({"chunk_size": 10}, {"warm_basis": True}, {"precondition": True}):
         with pytest.raises(TypeError):
             small_model.sample_posterior(n_chains=1, num_warmup=1, num_samples=1, **kw)
-    for name in ("advi", "smc"):
-        with pytest.raises(TypeError):
-            getattr(small_model, name)(mesh=None)
 
 
 # ------------------------------------- advi, smc, information_criteria
