@@ -79,9 +79,11 @@ Phases, one JSON line each:
    summed over trials against ``loglik`` through the kernel;
 19. paper_run: the paper run (``gpcsd_tpu_torch.paper_run.main``, the
    function behind ``scripts/torch_paper_nuts_run.py``) at short lengths,
-   three times: stopped by ``--max-seconds`` (exit code 3), finished from
-   the saved state, and uninterrupted on the same cached inputs; the two
-   sets of draws are equal bit for bit and the artifact holds every key;
+   four times: stopped by ``--max-seconds`` inside the MAP stage and then in
+   the sampler (exit code 3 each), finished from the saved state, and
+   uninterrupted on the same cached inputs; the two sets of draws are equal
+   bit for bit, the resumed MAP equals an uninterrupted MAP stage's, and the
+   artifact holds every key;
 20. signal: the auditory twin's two surrogate probes at full width (24
    channels, 400 samples, 60 trials), models restored by its ``fit_probe``
    from a pickle of fixed parameters, CSD and LFP predicted on the 199-sample
@@ -132,11 +134,26 @@ Phases, one JSON line each:
    ms through the host, ``map_fit_sharded`` 2 x 10 and ``advi_sharded`` 12 x 8;
    at (2, 1) ``map_fit_sharded``, ``smc_sharded`` (32 particles, 3 stages)
    and ``nuts_sharded`` 2 x (3 + 3) against their unsharded twins; then the
-   kernel at the block's shape (24, 600, 50) as in phase 3 and 27.
+   kernel at the block's shape (24, 600, 50) as in phase 3 and 27;
+29. map_resume (after phase 6): ``fit`` of 3 restarts x 12 L-BFGS
+   iterations at the paper configuration, uninterrupted and stopped by
+   ``options={"max_wall_seconds": 0, "chunk_iters": 3, "state_path": ...}``
+   at every checkpoint and rerun until done: ``u``, NLLs and evaluations
+   equal bit for bit; ms a checkpoint save and its bytes;
+30. noise_probe (after phase 19): ``gpcsd_tpu_torch.noise_probe.probe`` at
+   the banked posterior's centre, ``het_noise`` "exact" and "approx", card
+   and CPU: the RMS residual of a quadratic fit to 33 values of log p over
+   a segment of half-width 1e-2; on the card below 1e-2 log-units and
+   within 10x the CPU's;
+31. profiling: ``gpcsd_tpu_torch.utils.profiling`` at the bench point:
+   ``measure_evals_per_second`` and ``Throughput`` over the timing phase's
+   50 points beside that phase's evals/s, and a ``trace`` of 3 value+grad
+   evaluations whose Chrome trace names the quadform kernel.
 
 The quadform launch count is set to 0 before each stretch of the main path
-(log_prob + fit, hessian, nuts, log_prob_2d, fit_2d, reparam, advi, smc, ic,
-paper_run, the shifts phase's fit and its shift stage, workloads, each
+(log_prob + fit, map_resume, hessian, nuts, log_prob_2d, fit_2d, reparam,
+advi, smc, ic, paper_run, noise_probe, profiling, the shifts phase's fit and
+its shift stage, workloads, each
 twin's run in io, workloads_sim and workloads_2d, and each sharded call of
 the parallel phase, in this process and in each rank) and read after it;
 ``predict`` and the other outputs solve with the factors and launch no
@@ -147,6 +164,7 @@ it fails before printing a result.
 
 import json
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -641,15 +659,18 @@ def phase_ic(qf, gpu, post):
 def phase_paper_run(qf, smi):
     """The paper run at short lengths: stopped, resumed, and
     uninterrupted on the same cached inputs."""
-    from gpcsd_tpu_torch import paper_run
+    from gpcsd_tpu_torch import config, paper_run
 
     lengths = ["--restarts", "2", "--map-maxiter", "5", "--polish-maxiter", "5",
                "--warmup", "6", "--samples", "4"]
     tmp = tempfile.mkdtemp(prefix="paper_run_")
     try:
-        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        a, b, c = (os.path.join(tmp, d) for d in "abc")
         qf.launch_count = 0
         t0 = time.perf_counter()
+        # the first stop falls inside the MAP stage, the second in the sampler
+        rc_map_stop = paper_run.main(["--out-dir", a, "--max-seconds", "0", *lengths])
+        map_stop_files = sorted(os.listdir(a))
         rc_stop = paper_run.main(["--out-dir", a, "--max-seconds", "0", *lengths])
         stopped_at = len(json.load(open(os.path.join(a, "chunk_timing.json"))))
         check(not os.path.exists(os.path.join(a, "paper_nuts_auditory.json")),
@@ -659,8 +680,16 @@ def phase_paper_run(qf, smi):
         for name in ("surrogate_lfp.npz", "map_params.pkl", "mode_params.pkl", "hessian_f64.npz"):
             shutil.copy2(os.path.join(a, name), os.path.join(b, name))
         rc_whole = paper_run.main(["--out-dir", b, *lengths])
+        # one uninterrupted MAP stage on the same surrogate
+        os.makedirs(c)
+        shutil.copy2(os.path.join(a, "surrogate_lfp.npz"), os.path.join(c, "surrogate_lfp.npz"))
+        paper_run.fit_map(paper_run.build_model(c, 1200, 100, 0, config.DEFAULT_DEVICE), c,
+                          restarts=2, maxiter=5, seed=0)
         seconds = time.perf_counter() - t0
         launches = qf.launch_count
+        maps = [pickle.load(open(os.path.join(d, "map_params.pkl"), "rb")) for d in (a, c)]
+        map_same = maps[0].keys() == maps[1].keys() and all(
+            np.array_equal(np.asarray(maps[0][k]), np.asarray(maps[1][k])) for k in maps[1])
         art = json.load(open(os.path.join(a, "paper_nuts_auditory.json")))
         with np.load(os.path.join(a, "posterior_samples.npz")) as da, \
                 np.load(os.path.join(b, "posterior_samples.npz")) as db:
@@ -669,12 +698,16 @@ def phase_paper_run(qf, smi):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     leapfrogs = art["mean_leapfrogs_per_sample"] * art["config"]["chains"] * art["config"]["samples"]
-    emit("paper_run", seconds=seconds, exit_codes=[rc_stop, rc_resume, rc_whole],
+    emit("paper_run", seconds=seconds, exit_codes=[rc_map_stop, rc_stop, rc_resume, rc_whole],
+         map_stop_files=map_stop_files, map_resumed_equals_uninterrupted=bool(map_same),
          stopped_after_transitions=stopped_at, launches=launches, draws_shape=draws_shape,
          resumed_equals_uninterrupted=bool(same), healthy=art["healthy"], max_rhat=art["max_rhat"],
          divergences=art["divergences"], step_size=art["step_size"],
          max_abs_z_vs_banked=max(abs(v["z"]) for v in art["vs_banked"].values()))
-    check([rc_stop, rc_resume, rc_whole] == [3, 0, 0], "paper_run: exit codes")
+    check([rc_map_stop, rc_stop, rc_resume, rc_whole] == [3, 3, 0, 0], "paper_run: exit codes")
+    check("map_state.npz" in map_stop_files and "map_params.pkl" not in map_stop_files,
+          f"paper_run: the MAP stage's stop left {map_stop_files}")
+    check(map_same, "paper_run: the stopped and resumed MAP differs from the uninterrupted one")
     check(stopped_at == 5, f"paper_run: stopped after {stopped_at} transitions, not at the first save")
     check(same, "paper_run: the resumed run's draws differ from the uninterrupted run's")
     check(set(art) == ARTIFACT_KEYS, f"paper_run: artifact keys {sorted(set(art) ^ ARTIFACT_KEYS)}")
@@ -686,10 +719,150 @@ def phase_paper_run(qf, smi):
     return launches
 
 
+#: map_resume: restarts x iterations at the paper configuration, and the
+#: iterations between checkpoints
+MAP_RESUME = dict(n_restarts=3, maxiter=12, chunk_iters=3)
+
+
+def phase_map_resume(qf, gpu, smi):
+    """The resumable MAP at the paper configuration: ``fit`` of
+    ``MAP_RESUME`` once uninterrupted, and once stopped by
+    ``max_wall_seconds=0`` at every checkpoint and rerun until done; ``u``,
+    the NLLs and the evaluations equal bit for bit.  The checkpoint's saves
+    are timed where the optimizer calls them (ms a save, the device's state
+    copied to the host included) and its files weighed."""
+    from gpcsd_tpu_torch.infer import lbfgs
+    from gpcsd_tpu_torch.infer.lbfgs import LBFGSTimeBudget
+
+    n, maxiter, chunk = MAP_RESUME["n_restarts"], MAP_RESUME["maxiter"], MAP_RESUME["chunk_iters"]
+    save = lbfgs.save_sampler_state
+    save_s = []
+
+    def timed_save(state, path):
+        t = time.perf_counter()
+        save(state, path)
+        save_s.append(time.perf_counter() - t)
+
+    tmp = tempfile.mkdtemp(prefix="map_resume_")
+    qf.launch_count = 0
+    try:
+        t0 = time.perf_counter()
+        whole = gpu.fit(n_restarts=n, seed=0, options={"maxiter": maxiter})
+        whole_s = time.perf_counter() - t0
+        opts = {"maxiter": maxiter, "chunk_iters": chunk, "max_wall_seconds": 0,
+                "state_path": os.path.join(tmp, "map_state")}
+        stops, calls = 0, 0
+        lbfgs.save_sampler_state = timed_save
+        t0 = time.perf_counter()
+        while True:
+            calls += 1
+            check(calls <= maxiter, "map_resume: the stopped fit makes no progress")
+            try:
+                res = gpu.fit(n_restarts=n, seed=0, options=opts)
+                break
+            except LBFGSTimeBudget:
+                stops += 1
+        resumed_s = time.perf_counter() - t0
+        state_bytes = sum(os.path.getsize(opts["state_path"] + ext)
+                          for ext in (".npz", ".structure.pkl"))
+    finally:
+        lbfgs.save_sampler_state = save
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = qf.launch_count
+    same = (np.array_equal(res.u_all, whole.u_all) and np.array_equal(res.nll_values, whole.nll_values)
+            and np.array_equal(res.n_evals, whole.n_evals))
+    emit("map_resume", card=smi, restarts=n, maxiter=maxiter, chunk_iters=chunk, stops=stops,
+         saves=len(save_s), save_ms=[1e3 * t for t in save_s], state_bytes=state_bytes,
+         uninterrupted_seconds=whole_s, stopped_and_resumed_seconds=resumed_s,
+         n_iter=[m.split("iters=")[1] for m in whole.messages], evals=whole.n_evals.tolist(),
+         nll=whole.nll_values.tolist(), resumed_equals_uninterrupted=bool(same), launches=launches)
+    check(same, "map_resume: the stopped and resumed fit differs from the uninterrupted one")
+    check(stops >= 1 and len(save_s) >= stops, f"map_resume: {stops} stops, {len(save_s)} saves")
+    check(launches == 2 * int(whole.n_evals.sum()),
+          f"map_resume: {launches} launches for 2 x {int(whole.n_evals.sum())} evaluations")
+    return launches
+
+
+def phase_noise_probe(qf, gpu, cpu, lfp, time_ms, u_center, smi):
+    """The likelihood noise probe (``gpcsd_tpu_torch.noise_probe.probe``)
+    at the banked posterior's centre, ``het_noise`` "exact" and "approx",
+    on the card and on the CPU: 33 values of log p along a segment of
+    half-width 1e-2, the RMS residual of a quadratic fit."""
+    from gpcsd_tpu_torch import noise_probe, paper
+
+    models = {"exact": (gpu, cpu),
+              "approx": (paper.build_model(lfp, time_ms, het_noise="approx", device=gpu.device),
+                         paper.build_model(lfp, time_ms, het_noise="approx", device="cpu"))}
+    qf.launch_count = 0
+    out = {}
+    for het, (card_model, cpu_model) in models.items():
+        t0 = time.perf_counter()
+        card = noise_probe.probe(card_model, u_center)
+        card_s = time.perf_counter() - t0
+        host = noise_probe.probe(cpu_model, u_center)
+        out[het] = {"rms_card": card["rms"], "rms_cpu": host["rms"],
+                    "max_abs_residual_card": card["max_abs_residual"],
+                    "max_abs_residual_cpu": host["max_abs_residual"],
+                    "logp_center_card": card["center"], "logp_center_cpu": host["center"],
+                    "range_card": card["range"], "card_seconds": card_s}
+    launches = qf.launch_count
+    emit("noise_probe", card=smi, scale=1e-2, npts=33, launches=launches, **out)
+    for het, r in out.items():
+        check(r["rms_card"] < 1e-2, f"noise_probe: {het} RMS {r['rms_card']} on the card")
+        check(r["rms_card"] <= 10 * r["rms_cpu"],
+              f"noise_probe: {het} RMS {r['rms_card']} on the card, {r['rms_cpu']} on the CPU")
+    check(launches == 2 * 33, f"noise_probe: {launches} launches for 66 evaluations")
+    return launches
+
+
+def phase_profiling(qf, dev, smi, timing_evals_per_s):
+    """``gpcsd_tpu_torch.utils.profiling`` at the bench point: a ``trace`` of
+    3 value+grad evaluations (the Chrome trace must name the quadform
+    kernel), and ``measure_evals_per_second`` and ``Throughput`` over the
+    ``timing`` phase's 50 points, beside that phase's figure."""
+    from gpcsd_tpu_torch.infer.map import value_and_grad
+    from gpcsd_tpu_torch.utils.profiling import Throughput, measure_evals_per_second, trace
+
+    bench = bench_model(dev)
+    bfns, bY = bench._fns(), bench._Y()
+    u0 = bfns.param_set.pack(bench._theta()).cpu().numpy()
+    us = u0[None, :] + 0.01 * np.random.default_rng(1).normal(size=(50, u0.size))
+
+    def step(u):
+        return value_and_grad(lambda ut: bfns.neg_log_joint(ut, bY), u, dev)
+
+    qf.launch_count = 0
+    rate = measure_evals_per_second(step, [(u,) for u in us], warmup=3)
+    with Throughput("value+grad") as tp:
+        for u in us:
+            step(u)
+            tp.add()
+    tmp = tempfile.mkdtemp(prefix="trace_")
+    try:
+        with trace(tmp) as prof:
+            for u in us[:3]:
+                step(u)
+        trace_bytes = os.path.getsize(prof.trace_path)
+        with open(prof.trace_path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    kernels = sorted(n for n in names if "quadform" in n)
+    launches = qf.launch_count
+    emit("profiling", card=smi, measure_evals_per_s=rate, throughput_evals_per_s=tp.rate,
+         timing_phase_evals_per_s=timing_evals_per_s, trace_bytes=trace_bytes,
+         trace_quadform_names=[k[:80] for k in kernels], launches=launches)
+    check(any("quadform_gemm_kernel" in k for k in kernels),
+          f"profiling: the trace names no quadform kernel launch ({kernels})")
+    check(rate > 0 and tp.count == len(us), "profiling: the counters counted nothing")
+    check(launches == 3 + 2 * len(us) + 3, f"profiling: {launches} launches")
+    return launches
+
+
 def phase_timing(qf, dev, smi):
     """Log-joint value+grad evals/s at the bench point, and the quadform
     kernel against its plain version at the main-path shape.  Returns the
-    kernel's and the plain version's device milliseconds."""
+    kernel's and the plain version's device milliseconds and the evals/s."""
     from gpcsd_tpu_torch.infer.map import value_and_grad
 
     bench = bench_model(dev)
@@ -712,7 +885,7 @@ def phase_timing(qf, dev, smi):
     kt = kernel_times(qf, SHAPE_1D, dev)
     emit("timing", card=smi, log_joint_value_grad_evals_per_s=evals_per_s,
          covariances_and_eighs_ms=factor_ms, loglik_value_ms=value_ms, **kt)
-    return kt["quadform_device_ms"], kt["quadform_plain_device_ms"]
+    return kt["quadform_device_ms"], kt["quadform_plain_device_ms"], evals_per_s
 
 
 def kernel_times(qf, shape, dev):
@@ -1848,10 +2021,11 @@ def main():
          nll_best=res.nll_best, messages=res.messages)
     check(np.isfinite(res.nll_best), "MAP fit: best NLL is not finite")
     check(np.all(res.nll_values <= nll0), "MAP fit: a restart ended above its start")
+    launches_map_resume = phase_map_resume(qf, gpu, smi)
 
     # before the nuts phase, whose profiler may leave its tracing cost on the
     # process's later launches
-    device_ms, plain_device_ms = phase_timing(qf, dev, smi)
+    device_ms, plain_device_ms, evals_per_s = phase_timing(qf, dev, smi)
 
     # ---- the 2D path at the Neuropixels shape; its profile comes last
     gpu2d = paper.neuropixels_problem(0, device=dev)
@@ -1871,6 +2045,7 @@ def main():
     H, launches_hessian = phase_hessian(qf, gpu, cpu, u_center, banked_u)
     launches_nuts, post = phase_nuts(qf, gpu, H, u_center, banked_u, smi)
     launches_by_phase = {"log_prob": launches_log_prob, "fit": launches_map - launches_log_prob,
+                         "map_resume": launches_map_resume,
                          "hessian": launches_hessian, "nuts": launches_nuts}
 
     # ---- the other posterior engines, model comparison and the paper run
@@ -1879,6 +2054,8 @@ def main():
     launches_by_phase["smc"] = phase_smc(qf, gpu, cpu)
     launches_by_phase["ic"] = phase_ic(qf, gpu, post)
     launches_by_phase["paper_run"] = phase_paper_run(qf, smi)
+    launches_by_phase["noise_probe"] = phase_noise_probe(qf, gpu, cpu, lfp, time_ms, u_center, smi)
+    launches_by_phase["profiling"] = phase_profiling(qf, dev, smi, evals_per_s)
 
     # ---- the analysis stages and the two workload twins
     X = phase_signal(dev, smi)

@@ -22,19 +22,35 @@ The JAX body evaluates the objective at the accepted point twice (the value
 in the search, the gradient after it); here every trial point gets one
 value-and-gradient call, which gives the same numbers.
 
-Not carried over: ``lbfgs_minimize_chunked`` with its ``state_path``,
-``max_wall_seconds`` and ``LBFGSTimeBudget``, which bounded the length of a
-dispatch to a TPU worker.
+A run can be checkpointed and stopped on a wall-clock budget, as the JAX
+package's ``lbfgs_minimize_chunked`` is (``state_path``,
+``max_wall_seconds``, :class:`LBFGSTimeBudget`): the whole batched state
+goes to disk every ``chunk_iters`` iterations, and the same call resumes
+from it.  A run stopped any number of times and rerun to completion ends
+with the uninterrupted run's state bit for bit.  Not carried over is what
+the chunking was for there, the bounding of each dispatch to a TPU worker:
+here the iterations run in one loop whatever ``chunk_iters`` is.
 """
 
 from __future__ import annotations
 
+import hashlib
+import time
+import warnings
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from ..io.checkpoint import load_sampler_state, sampler_state_exists, save_sampler_state
 from ..models.core import value_and_grad_rows
+
+
+class LBFGSTimeBudget(Exception):
+    """Raised by :func:`lbfgs_minimize` at the first checkpoint after
+    ``max_wall_seconds``: the state is saved at ``state_path`` and the SAME
+    call continues from it.  Lets a driver under an outside time limit stop
+    cleanly and lose no iteration."""
 
 
 class LBFGSResult(NamedTuple):
@@ -94,6 +110,9 @@ def lbfgs_minimize(
     max_linesearch: int = 25,
     c1: float = 1e-4,
     row_data=None,
+    chunk_iters: int = 4,
+    state_path: str | None = None,
+    max_wall_seconds: float | None = None,
 ) -> LBFGSResult:
     """Minimize ``fun`` from every row of ``u0`` subject to ``lo <= u <= hi``
     (either may be None).
@@ -107,7 +126,26 @@ def lbfgs_minimize(
         leading axis ``C``: data of each row's own problem (a trial's LFP).
         ``fun`` is then called as ``fun(u_rows, *row_data_rows)``, the data
         gathered by the same indices as the rows of ``u`` it gets.
+    :param chunk_iters: iterations between two checkpoints at ``state_path``
+    :param state_path: checkpoint file stem
+        (:func:`gpcsd_tpu_torch.io.checkpoint.save_sampler_state`).  The
+        state (iterates, values, gradients, histories, masks, counters) is
+        saved every ``chunk_iters`` iterations and when the run ends, and a
+        later call resumes from it when its fingerprint (a sha256 of
+        ``u0``, the box, ``max_iter``, ``history``, the tolerances,
+        ``max_linesearch``, ``c1`` and ``row_data``) matches this call's.  A
+        checkpoint of another run, or one that cannot be read, is ignored
+        with a warning.
+    :param max_wall_seconds: raise :class:`LBFGSTimeBudget` at the first
+        checkpoint after this many seconds of this call, unless the run has
+        ended there; requires ``state_path``.  Each call makes at least
+        ``chunk_iters`` iterations.
     """
+    if max_wall_seconds is not None and not state_path:
+        raise ValueError("max_wall_seconds requires state_path")
+    if chunk_iters < 1:
+        raise ValueError(f"chunk_iters must be at least 1, got {chunk_iters}")
+    t_start = time.monotonic()
     u0 = torch.as_tensor(u0)
     if u0.ndim == 1:
         u0 = u0[None]
@@ -136,24 +174,40 @@ def lbfgs_minimize(
         # norm of P(u - g) - u: zero exactly at a constrained stationary point
         return torch.amax(torch.abs(project(u - g) - u), dim=-1)
 
-    n_evals = np.zeros(C, dtype=np.int64)
-    n_syncs = 0
-
-    # ---- init
-    u = project(u0.detach()).clone()  # the state is updated in place
-    f, g = evaluate(u, row_data)
-    n_evals += 1
-    failed = ~torch.isfinite(f)
-    f = torch.where(failed, big, f)
-    g = torch.where(torch.isfinite(g), g, 0.0)
-    s_hist = torch.zeros((C, m, dim), dtype=dtype, device=dev)
-    y_hist = torch.zeros((C, m, dim), dtype=dtype, device=dev)
-    rho = torch.zeros((C, m), dtype=dtype, device=dev)
-    k = torch.zeros(C, dtype=torch.int64, device=dev)
-    done = failed.clone()
+    state = None
+    if state_path:
+        fp = _fingerprint(u0, lo, hi, row_data, max_iter, history, gtol, ftol, max_linesearch, c1)
+        state = _resume(state_path, fp, dev)
+    if state is None:
+        u = project(u0.detach()).clone()  # the state is updated in place
+        f, g = evaluate(u, row_data)
+        failed = ~torch.isfinite(f)
+        state = {
+            "u": u, "f": torch.where(failed, big, f), "g": torch.where(torch.isfinite(g), g, 0.0),
+            "s_hist": torch.zeros((C, m, dim), dtype=dtype, device=dev),
+            "y_hist": torch.zeros((C, m, dim), dtype=dtype, device=dev),
+            "rho": torch.zeros((C, m), dtype=dtype, device=dev),
+            "k": torch.zeros(C, dtype=torch.int64, device=dev),
+            "done": failed.clone(), "failed": failed,
+            "n_evals": np.ones(C, dtype=np.int64), "n_syncs": 0, "iteration": 0,
+        }
+    u, f, g, k, done, failed = (state[n] for n in ("u", "f", "g", "k", "done", "failed"))
+    s_hist, y_hist, rho = state["s_hist"], state["y_hist"], state["rho"]
+    n_evals, n_syncs, n_iter = state["n_evals"], state["n_syncs"], state["iteration"]
+    n_iter_start = n_iter
 
     while True:
         live_h = np.flatnonzero((~done & (k < max_iter)).cpu().numpy())
+        if state_path and n_iter > n_iter_start and (n_iter % chunk_iters == 0 or live_h.size == 0):
+            # the tensors above are updated in place, so ``state`` holds them
+            state.update(n_syncs=n_syncs, iteration=n_iter)
+            save_sampler_state({"state": state, "config": fp}, state_path)
+            if (live_h.size and max_wall_seconds is not None
+                    and time.monotonic() - t_start > max_wall_seconds):
+                raise LBFGSTimeBudget(
+                    f"L-BFGS paused at iteration {n_iter} after {time.monotonic() - t_start:.1f} s; "
+                    f"state saved to {state_path!r}: rerun the same call to continue"
+                )
         n_syncs += 1
         if live_h.size == 0:
             break
@@ -207,8 +261,38 @@ def lbfgs_minimize(
         s_hist[live], y_hist[live], rho[live] = sl, yl, rl
         k[live] = kl + 1
         done[live] = converged | ~ls_ok | f_stall
+        n_iter += 1
 
     return LBFGSResult(
         u=u, f=f, n_iter=k, converged=proj_grad_norm(u, g) < gtol, failed=failed,
         n_evals=n_evals, n_syncs=n_syncs,
     )
+
+
+def _fingerprint(u0, lo, hi, row_data, max_iter, history, gtol, ftol, max_linesearch, c1):
+    """sha256 of what fixes a run: the fields JAX's ``lbfgs_minimize_chunked``
+    hashes, and the bytes of ``row_data``."""
+    def raw(x):
+        return None if x is None else torch.as_tensor(x).detach().cpu().numpy().tobytes()
+
+    return hashlib.sha256(repr((
+        raw(u0), raw(lo), raw(hi), int(max_iter), int(history), float(gtol), float(ftol),
+        int(max_linesearch), float(c1), tuple(raw(r) for r in row_data),
+    )).encode()).hexdigest()
+
+
+def _resume(state_path, fp, device):
+    """The saved state at ``state_path`` when it is this run's, else None
+    (with a warning when a checkpoint was there but not usable)."""
+    if not sampler_state_exists(state_path):
+        return None
+    try:
+        saved = load_sampler_state(state_path, device)
+    except Exception as e:  # a corrupt or unreadable checkpoint: start fresh
+        warnings.warn(f"lbfgs_minimize: could not resume from {state_path!r} ({e})")
+        return None
+    if not isinstance(saved, dict) or saved.get("config") != fp:
+        warnings.warn(f"lbfgs_minimize: the checkpoint at {state_path!r} is of another run: "
+                      "starting fresh")
+        return None
+    return saved["state"]

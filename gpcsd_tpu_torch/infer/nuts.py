@@ -399,6 +399,8 @@ def nuts_chains(
     callback=None,
     state_path=None,
     save_every: int = 1,
+    init_step_size: float = 1.0,
+    adapt_mass: bool = True,
 ) -> NUTSResult:
     """Multi-chain NUTS with Stan-style warmup, chains batched in lock-step.
     At 25%/50%/75% of warmup any chain whose dual-averaged step size has
@@ -427,6 +429,10 @@ def nuts_chains(
         a callback that raises at a saved transition loses nothing.
     :param save_every: save after every this many transitions (and after
         the last)
+    :param init_step_size: where the initial step-size search starts
+        (:func:`~gpcsd_tpu_torch.infer.hmc.find_reasonable_step_size`)
+    :param adapt_mass: adapt the metric in warmup's slow windows; with
+        False the metric stays the identity and only the step size adapts
     """
     u0s = u0s.detach()
     nchains, dim = u0s.shape
@@ -454,7 +460,8 @@ def nuts_chains(
     run_id = {"nchains": nchains, "dim": dim, "num_warmup": num_warmup,
               "num_samples": num_samples, "max_depth": max_depth,
               "target_accept": float(target_accept), "dense_mass": bool(dense_mass),
-              "pool_warmup": bool(pool_warmup)}
+              "pool_warmup": bool(pool_warmup), "init_step_size": float(init_step_size),
+              "adapt_mass": bool(adapt_mass)}
 
     if state_path is not None and sampler_state_exists(state_path):
         st = load_sampler_state(state_path, device)
@@ -471,7 +478,8 @@ def nuts_chains(
     else:
         start = 0
         xi0 = torch.stack([torch.randn(dim, generator=g, dtype=torch.float64) for g in gens])
-        step0 = find_reasonable_step_size(vg, u0s, xi0.to(device=device, dtype=dtype), inv_mass)
+        step0 = find_reasonable_step_size(vg, u0s, xi0.to(device=device, dtype=dtype), inv_mass,
+                                          init=init_step_size)
         z = u0s.clone()
         logp, grad = vg(z)
         da, wf = da_init(step0), wf_init()
@@ -490,13 +498,13 @@ def nuts_chains(
         )
         if warm:
             da = da_update(da, stats.accept_prob, target=target_accept)
-            if slow[i]:
+            if slow[i] and adapt_mass:
                 wf = wf_update(wf, z)
-            if window_end[i]:
+            if window_end[i] and adapt_mass:
                 inv_mass = wf_estimate(wf)
                 da = da_init(torch.exp(da.log_step_avg))
                 wf = wf_init()
-            if pool_warmup and (i + 1) % POOL_EVERY == 0:
+            if pool_warmup and adapt_mass and (i + 1) % POOL_EVERY == 0:
                 wf = _pool_welford_chains(wf)
             if i in guard_at:
                 z, logp, grad, da, wf, inv_mass = stepsize_floor_guard(

@@ -49,6 +49,27 @@ def temporal_param_names(n_components: int):
     return [(f"tm{i}_ell", f"tm{i}_sigma2") for i in range(n_components)]
 
 
+def build_kt_fns(temporal_kinds, t_data: torch.Tensor):
+    """Temporal covariance stack ``K_t = sum_i K_t^i`` (reference
+    ``gpcsd1d.py:118-120``): ``(build_kt, build_kt_components)``, each
+    ``(theta, t=None, tprime=None)`` with ``t``/``tprime`` defaulting to the
+    (nt,) data times ``t_data``."""
+    names = temporal_param_names(len(temporal_kinds))
+
+    def build_kt_components(theta: Dict, t=None, tprime=None):
+        tt = t_data if t is None else t
+        tp = t_data if tprime is None else tprime
+        return [
+            TEMPORAL_KERNELS[kind](tt, tp, theta[ell], theta[sigma2])
+            for kind, (ell, sigma2) in zip(temporal_kinds, names)
+        ]
+
+    def build_kt(theta: Dict, t=None, tprime=None):
+        return sum(build_kt_components(theta, t, tprime))
+
+    return build_kt, build_kt_components
+
+
 def make_model_fns(
     param_set: ParamSet,
     build_ks,
@@ -76,18 +97,7 @@ def make_model_fns(
     def full_theta(theta: Dict) -> Dict:
         return {**theta, **fixed} if fixed else theta
 
-    names = temporal_param_names(len(temporal_kinds))
-
-    def build_kt_components(theta: Dict, t=None, tprime=None):
-        tt = t_data if t is None else t
-        tp = t_data if tprime is None else tprime
-        return [
-            TEMPORAL_KERNELS[kind](tt, tp, theta[ell], theta[sigma2])
-            for kind, (ell, sigma2) in zip(temporal_kinds, names)
-        ]
-
-    def build_kt(theta: Dict, t=None, tprime=None):
-        return sum(build_kt_components(theta, t, tprime))
+    build_kt, build_kt_components = build_kt_fns(temporal_kinds, t_data)
 
     def build_factors(theta: Dict):
         theta = full_theta(theta)

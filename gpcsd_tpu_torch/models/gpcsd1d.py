@@ -312,6 +312,10 @@ class GPCSD1D(InferenceAPIMixin):
         :param backend: 'torch' (all restarts in one batched L-BFGS run on
             the model's device) or 'scipy' (serial L-BFGS-B, the
             reference-parity path).
+        :param options: ``maxiter`` (1000), ``gtol``, ``ftol``, and for
+            ``backend='torch'`` ``chunk_iters`` (4), ``state_path`` and
+            ``max_wall_seconds``, as :func:`~gpcsd_tpu_torch.infer.map.map_fit`
+            takes them.
         """
         del method  # only L-BFGS variants are supported, as in the reference
         options = options or {}
@@ -326,6 +330,9 @@ class GPCSD1D(InferenceAPIMixin):
             gtol=options.get("gtol", 1e-5),
             ftol=options.get("ftol", 1e7 * np.finfo(float).eps),
             verbose=verbose,
+            chunk_iters=options.get("chunk_iters", 4),
+            state_path=options.get("state_path"),
+            max_wall_seconds=options.get("max_wall_seconds"),
         )
         theta = fns.param_set.unpack(torch.as_tensor(res.u_best))
         if fix_R:

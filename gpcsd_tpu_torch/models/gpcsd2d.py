@@ -314,6 +314,7 @@ class GPCSD2D(InferenceAPIMixin):
         verbose=False,
         backend="torch",
         seed=0,
+        profile=False,
         options=None,
     ):
         """Multi-restart MAP fit (reference default maxiter=500,
@@ -322,10 +323,22 @@ class GPCSD2D(InferenceAPIMixin):
         Restart draws come from ``numpy.random.default_rng(seed)``.
         :param backend: 'torch' (all restarts in one batched L-BFGS run on
             the model's device) or 'scipy' (serial L-BFGS-B).
+        :param profile: instead of fitting, profile one objective call and
+            one gradient call with cProfile at one prior draw, into the
+            files ``objfunstats`` and ``gradobjfunstats`` of the working
+            directory, and return None (the reference's hook,
+            ``gpcsd2d.py:242-247``); the parameters are left as they are.
+        :param options: ``maxiter`` (500), ``gtol``, ``ftol``, and for
+            ``backend='torch'`` ``chunk_iters`` (4), ``state_path`` and
+            ``max_wall_seconds``, as :func:`~gpcsd_tpu_torch.infer.map.map_fit`
+            takes them.
         """
         del method  # only L-BFGS variants are supported, as in the reference
         options = options or {}
         fns = self._fns(fix_R=fix_R)
+        if profile:
+            self._profile_objective(fns, seed)
+            return None
         res = map_fit(
             fns.neg_log_joint,
             fns.param_set,
@@ -336,6 +349,9 @@ class GPCSD2D(InferenceAPIMixin):
             gtol=options.get("gtol", 1e-5),
             ftol=options.get("ftol", 1e7 * np.finfo(float).eps),
             verbose=verbose,
+            chunk_iters=options.get("chunk_iters", 4),
+            state_path=options.get("state_path"),
+            max_wall_seconds=options.get("max_wall_seconds"),
         )
         theta = fns.param_set.unpack(torch.as_tensor(res.u_best))
         if fix_R:
@@ -343,6 +359,28 @@ class GPCSD2D(InferenceAPIMixin):
         self._set_theta(theta)
         self.fit_result = res
         return res
+
+    def _profile_objective(self, fns, seed):
+        """cProfile of one value and one gradient of the MAP objective at a
+        prior draw from ``numpy.random.default_rng(seed)``, after a warm-up;
+        on the card each profiled statement ends in a synchronize."""
+        import cProfile
+
+        Y = self._Y()
+        u0 = fns.param_set.pack(fns.param_set.sample(np.random.default_rng(seed))).to(self.device)
+        sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
+
+        def f(u):
+            with torch.no_grad():
+                return fns.neg_log_joint(u, Y)
+
+        def gf(u):
+            u = u.detach().requires_grad_(True)
+            return torch.autograd.grad(fns.neg_log_joint(u, Y), u)[0]
+
+        f(u0), gf(u0), sync()  # warm up outside the profile
+        cProfile.runctx("f(u0); sync()", None, locals(), filename="objfunstats")
+        cProfile.runctx("gf(u0); sync()", None, locals(), filename="gradobjfunstats")
 
     def predict(self, z, t, type="csd"):
         """Posterior mean CSD/LFP at (nz, 2) locations z and times t.

@@ -111,11 +111,12 @@ def stream_generator(seed: int, k: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(state >> np.uint64(1)))
 
 
-def prior_starts(fns: ModelFns, seed: int, n: int) -> np.ndarray:
+def prior_starts(fns: ModelFns, seed: int, n: int, fixed=None) -> np.ndarray:
     """(n, dim) prior draws in u clipped into the parameter box, from
     ``numpy.random.default_rng([seed, 0])``: the samplers' starts, with or
-    without a mesh."""
-    return sample_restarts(fns.param_set, np.random.default_rng([seed, 0]), n)
+    without a mesh.  ``fixed`` pins constrained values
+    (:func:`~gpcsd_tpu_torch.infer.map.sample_restarts`)."""
+    return sample_restarts(fns.param_set, np.random.default_rng([seed, 0]), n, fixed=fixed)
 
 
 class InferenceAPIMixin:

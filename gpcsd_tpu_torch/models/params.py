@@ -125,14 +125,23 @@ class ParamSet:
             hi[o0:o1] = np.log(np.broadcast_to(s.hi, (s.size,)) / s.scale)
         return lo, hi
 
-    def sample(self, gen: np.random.Generator):
+    def sample(self, gen: np.random.Generator, fixed: Dict | None = None):
         """Draw constrained values (numpy) from the priors with ``gen``
-        (restart initialization, mirroring ``gpcsd1d.py:194-208``)."""
+        (restart initialization, mirroring ``gpcsd1d.py:194-208``).
+
+        :param fixed: constrained values that override the draws of their
+            names.  A pinned name still consumes its draws from ``gen``, so
+            every other name gets the value it gets without ``fixed``.
+        """
+        fixed = fixed or {}
         out = {}
         for name in self.names:
             s = self.specs[name]
             v = np.array([float(p.sample(gen)) for p in s.priors])
-            out[name] = v[0] if s.size == 1 else v
+            if name in fixed:
+                out[name] = np.asarray(fixed[name], dtype=np.float64)
+            else:
+                out[name] = v[0] if s.size == 1 else v
         return out
 
     def clip_to_bounds(self, u: torch.Tensor):

@@ -188,14 +188,18 @@ def quad_term(factors: KronFactors, Y):
     ])
 
 
-def loglik(factors: KronFactors, Y):
+def loglik(factors: KronFactors, Y, ntrials=None):
     """Marginal log-likelihood of trials Y (..., nx, nt); sums trial axes.
 
     Drops the -0.5*n*log(2*pi) constant, matching reference ``loglik``
     (``gpcsd1d.py:113-128``).  The quadratic term is :func:`quad_term`;
     batched factors ``(C, ...)`` give ``(C,)`` values.
+
+    :param ntrials: the trial count of the log-determinant term, when ``Y``
+        is one block of a larger set of trials (default: ``Y``'s own)
     """
-    ntrials = Y[..., 0, 0].numel()
+    if ntrials is None:
+        ntrials = Y[..., 0, 0].numel()
     logdet = ntrials * (torch.sum(torch.log(factors.d), dim=(-2, -1)) + factors.logdet_offset)
     return -0.5 * (logdet + quad_term(factors, Y))
 

@@ -13,8 +13,9 @@ that Hessian.
 Every stage is cached in ``--out-dir`` (surrogate data, MAP and mode
 parameters, Hessian, sampler state, per-transition timing), so a rerun
 continues where the last attempt stopped.  With ``--max-seconds`` the
-process ends with exit code 3 at the next saved transition once that much
-time has passed since it started:
+process ends with exit code 3 once that much time has passed since it
+started: inside the MAP stage at its next checkpoint (every 3 L-BFGS
+iterations, in ``map_state``), in the sampler at its next saved transition:
 
     until python scripts/torch_paper_nuts_run.py --max-seconds 1500; do :; done
 
@@ -23,8 +24,7 @@ split-R-hat, ESS, divergences, step sizes, truth recovery, the comparison
 with the banked posterior) and ``posterior_samples.npz``.
 
 Not carried over from the JAX script: ``--platform``, ``--hessian pooled``,
-``--inputs-from``, the surrogate and Hessian subprocesses, and the chunked
-MAP with its time budget.
+``--inputs-from``, and the surrogate and Hessian subprocesses.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ import torch
 
 from . import config, paper
 from .infer.diagnostics import ess_bulk
-from .infer.lbfgs import lbfgs_minimize
+from .infer.lbfgs import LBFGSTimeBudget, lbfgs_minimize
 from .io.checkpoint import load_params, save_params
 from .models.inference_api import laplace_hessian
 
@@ -49,6 +49,9 @@ from .models.inference_api import laplace_hessian
 #: repository root
 BANKED = os.path.join("results", "paper_nuts_hetx", "posterior_samples.npz")
 SAVE_EVERY = 5
+#: L-BFGS iterations between two checkpoints of the MAP stage, as the JAX
+#: script's ``chunk_iters``
+MAP_CHUNK_ITERS = 3
 MAX_DEPTH = 7
 
 
@@ -63,7 +66,7 @@ def _replace_with(path, write, mode="wb"):
     os.replace(path + ".tmp", path)
 
 
-def build_model(out_dir, ntime, ntrials, seed, device):
+def build_model(out_dir, ntime, ntrials, seed, device, het_noise="exact"):
     """Auditory-size surrogate + the paper covariance stack (the data cached
     on disk so every resume sees the identical problem)."""
     data_path = os.path.join(out_dir, "surrogate_lfp.npz")
@@ -74,7 +77,29 @@ def build_model(out_dir, ntime, ntrials, seed, device):
         lfp, time_ms, truth = paper.paper_surrogate(seed, ntime, ntrials, device=device)
         _replace_with(data_path, lambda f: np.savez(
             f, lfp=lfp, time_ms=time_ms, **{"truth_" + k: v for k, v in truth.items()}))
-    return paper.build_model(lfp, time_ms, het_noise="exact", device=device)
+    return paper.build_model(lfp, time_ms, het_noise=het_noise, device=device)
+
+
+def fit_map(model, out_dir, restarts, maxiter, seed, max_wall_seconds=None):
+    """Stage 1: the multi-restart MAP fit of ``model`` (restarts batched on
+    its device), written to ``map_params.pkl`` in ``out_dir``, or restored
+    from that file when it is there.  The optimizer's state is checkpointed
+    in ``map_state`` every :data:`MAP_CHUNK_ITERS` iterations: a fit stopped
+    by ``max_wall_seconds`` (:class:`~gpcsd_tpu_torch.infer.lbfgs.LBFGSTimeBudget`)
+    continues on the next call, and ends where an uninterrupted fit ends."""
+    path = os.path.join(out_dir, "map_params.pkl")
+    if os.path.exists(path):
+        load_params(model, path)
+        print("MAP: restored from cache", flush=True)
+        return
+    t0 = time.time()
+    model.fit(n_restarts=restarts, backend="torch", seed=seed, verbose=True,
+              options={"maxiter": maxiter, "chunk_iters": MAP_CHUNK_ITERS,
+                       "state_path": os.path.join(out_dir, "map_state"),
+                       "max_wall_seconds": max_wall_seconds})
+    save_params(model, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    print(f"MAP: fitted in {time.time() - t0:.1f} s", flush=True)
 
 
 def polish_mode(model, max_iter):
@@ -140,8 +165,8 @@ def main(argv=None) -> int:
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))), BANKED),
         help="posterior_samples.npz of the run to compare with ('' for none)")
     ap.add_argument("--max-seconds", type=float, default=None,
-                    help="exit 3 at the next saved transition after this much "
-                         "wall time since the process started")
+                    help="exit 3 at the next MAP checkpoint or saved transition "
+                         "after this much wall time since the process started")
     args = ap.parse_args(argv)
     t_process0 = time.time()
     os.makedirs(args.out_dir, exist_ok=True)
@@ -150,17 +175,14 @@ def main(argv=None) -> int:
 
     model = build_model(args.out_dir, args.ntime, args.ntrials, args.seed, device)
 
-    # stage 1: MAP (10 restarts batched on the device); also the polish's start
-    if os.path.exists(out("map_params.pkl")):
-        load_params(model, out("map_params.pkl"))
-        print("MAP: restored from cache", flush=True)
-    else:
-        t0 = time.time()
-        model.fit(n_restarts=args.restarts, backend="torch", seed=args.seed, verbose=True,
-                  options={"maxiter": args.map_maxiter})
-        save_params(model, out("map_params.pkl.tmp"))
-        os.replace(out("map_params.pkl.tmp"), out("map_params.pkl"))
-        print(f"MAP: fitted in {time.time() - t0:.1f} s", flush=True)
+    # stage 1: MAP (10 restarts batched on the device); also the polish's start.
+    # The budget runs from the process's start, as the sampler's does
+    budget = None if args.max_seconds is None else args.max_seconds - (time.time() - t_process0)
+    try:
+        fit_map(model, args.out_dir, args.restarts, args.map_maxiter, args.seed, budget)
+    except LBFGSTimeBudget as e:
+        print(f"MAP stage: {e}", flush=True)
+        return 3
 
     # stage 1b: centre sampling at the unconstrained mode, so that the
     # whitening Hessian and the chain inits are consistent

@@ -18,9 +18,12 @@ see bit-identical reduced values and gradients, so the host-side decisions
 of NUTS's trees, L-BFGS's line searches and SMC's ladder agree without
 further communication.
 
-Not carried over: ``make_trial_sharded_log_prob_aux`` (the port threads no
-eigenbasis, so there is no ``warm_basis``) and the ``init_overrides`` of
-the drivers (no caller passes them).
+Each driver's ``init_overrides`` pins constrained parameter values in its
+prior starts, as ``fixed=`` of
+:func:`~gpcsd_tpu_torch.infer.map.sample_restarts` does.  Not carried over:
+``make_trial_sharded_log_prob_aux`` and ``warm_basis`` (the JAX package's
+warm-started eigenbasis, a TPU eigensolver workaround; the port threads
+none).
 """
 
 from __future__ import annotations
@@ -137,7 +140,7 @@ def _setup(fns, Y, mesh):
 
 def nuts_sharded(fns: ModelFns, Y, mesh, seed: int, n_chains: int, num_warmup: int = 500,
                  num_samples: int = 500, max_depth: int = 10, target_accept: float = 0.8,
-                 dense_mass: bool = False) -> NUTSResult | None:
+                 dense_mass: bool = False, init_overrides=None) -> NUTSResult | None:
     """NUTS with chains split over the ``chain`` axis and the trial
     likelihood summed over the ``trial`` axis.
 
@@ -159,7 +162,7 @@ def nuts_sharded(fns: ModelFns, Y, mesh, seed: int, n_chains: int, num_warmup: i
         )
     Y_block, log_prob, dev = _setup(fns, Y, mesh)
     lo, hi = _chain_block(mesh, n_chains)
-    u0s = torch.as_tensor(prior_starts(fns, seed, n_chains)[lo:hi], device=dev)
+    u0s = torch.as_tensor(prior_starts(fns, seed, n_chains, init_overrides)[lo:hi], device=dev)
     res = nuts_chains(
         lambda u: log_prob(u, Y_block), u0s, chain_generators(seed, n_chains)[lo:hi],
         num_warmup=num_warmup, num_samples=num_samples, max_depth=max_depth,
@@ -169,7 +172,7 @@ def nuts_sharded(fns: ModelFns, Y, mesh, seed: int, n_chains: int, num_warmup: i
 
 
 def advi_sharded(fns: ModelFns, Y, mesh, seed: int, num_steps: int = 2000, n_mc: int = 8,
-                 learning_rate: float = 0.02):
+                 learning_rate: float = 0.02, init_overrides=None):
     """Mean-field ADVI with the trial likelihood summed over the ``trial``
     axis.  The variational state is replicated: every rank runs the same
     Adam trajectory from the same start and draws, those of the model's
@@ -181,14 +184,14 @@ def advi_sharded(fns: ModelFns, Y, mesh, seed: int, num_steps: int = 2000, n_mc:
     if not in_mesh(mesh):
         return None
     Y_block, log_prob, dev = _setup(fns, Y, mesh)
-    u0 = torch.as_tensor(prior_starts(fns, seed, 1)[0], device=dev)
+    u0 = torch.as_tensor(prior_starts(fns, seed, 1, init_overrides)[0], device=dev)
     return advi_fit(lambda u: log_prob(u, Y_block), u0, stream_generator(seed, 1),
                     num_steps=num_steps, n_mc=n_mc, learning_rate=learning_rate)
 
 
 def smc_sharded(fns: ModelFns, Y, mesh, seed: int, n_particles: int = 1024,
                 n_mutation_steps: int = 10, ess_target_frac: float = 0.5, rw_scale: float = 1.0,
-                max_stages: int = 100, chunk: int | None = None):
+                max_stages: int = 100, chunk: int | None = None, init_overrides=None):
     """Tempered SMC with particle likelihoods split over the ``chain`` axis
     and trial terms summed over the ``trial`` axis.
 
@@ -216,21 +219,22 @@ def smc_sharded(fns: ModelFns, Y, mesh, seed: int, n_particles: int = 1024,
     def batch_like(ps):
         return _gather_chain(mesh, _eval_rows(log_like, ps[lo:hi], chunk))
 
-    particles0 = torch.as_tensor(prior_starts(fns, seed, n_particles), device=dev)
+    particles0 = torch.as_tensor(prior_starts(fns, seed, n_particles, init_overrides), device=dev)
     return smc_run(fns.log_prior_u, batch_like, particles0, stream_generator(seed, 1),
                    n_mutation_steps=n_mutation_steps, ess_target_frac=ess_target_frac,
                    max_stages=max_stages, rw_scale=rw_scale)
 
 
 def map_fit_sharded(fns: ModelFns, Y, mesh, seed: int, n_restarts: int, maxiter: int = 1000,
-                    gtol: float = 1e-5, ftol: float = 1e7 * np.finfo(float).eps):
+                    gtol: float = 1e-5, ftol: float = 1e7 * np.finfo(float).eps,
+                    init_overrides=None):
     """Multi-restart MAP with restarts split over the ``chain`` axis and the
     likelihood summed over the ``trial`` axis: one batched
     :func:`~gpcsd_tpu_torch.infer.lbfgs.lbfgs_minimize` per rank over its
     block, minimizing ``-log_prob`` (which, as in the JAX package, includes
     the log-det-Jacobian).  The starts are ``sample_restarts`` from
-    ``numpy.random.default_rng(seed)``; ``n_restarts`` is padded up to a
-    multiple of the chain size.
+    ``numpy.random.default_rng(seed)`` with ``fixed=init_overrides``;
+    ``n_restarts`` is padded up to a multiple of the chain size.
 
     :return: ``(u_all (n_restarts, dim), nll_all (n_restarts,))`` numpy
         arrays, ``inf`` where a restart failed; None on a rank outside the
@@ -241,7 +245,8 @@ def map_fit_sharded(fns: ModelFns, Y, mesh, seed: int, n_restarts: int, maxiter:
     n_restarts += -n_restarts % _axis_size(mesh, "chain")
     Y_block, log_prob, dev = _setup(fns, Y, mesh)
     lo, hi = _chain_block(mesh, n_restarts)
-    u0s = sample_restarts(fns.param_set, np.random.default_rng(seed), n_restarts)[lo:hi]
+    u0s = sample_restarts(fns.param_set, np.random.default_rng(seed), n_restarts,
+                          fixed=init_overrides)[lo:hi]
     box_lo, box_hi = fns.param_set.bounds()
     res = lbfgs_minimize(lambda u: -log_prob(u, Y_block), torch.as_tensor(u0s, device=dev),
                          lo=box_lo, hi=box_hi, max_iter=maxiter, gtol=gtol, ftol=ftol)

@@ -454,3 +454,27 @@ def test_callback_and_generator_count():
     assert seen == [(i, 6) for i in range(5)]
     with pytest.raises(ValueError, match="generators"):
         tn.nuts_chains(lp, u0s, tn.chain_generators(0, 3), num_warmup=1, num_samples=1)
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["diag", "dense"])
+def test_adapt_mass_off_and_init_step_size(dense):
+    """``adapt_mass=False`` keeps the metric the identity through warmup, as
+    the JAX sampler's does, where the default adapts it to the scales;
+    ``init_step_size`` is where the step-size search starts, so the step of
+    a run without warmup is that start times a power of two."""
+    scales = T([0.5, 1.0, 2.0])
+
+    def lp(u):
+        return -0.5 * torch.sum(torch.square(u / scales), dim=-1)
+
+    u0s = torch.zeros(2, 3, dtype=torch.float64)
+    kw = dict(num_warmup=100, num_samples=5, max_depth=4, dense_mass=dense)
+    fixed = tn.nuts_chains(lp, u0s, tn.chain_generators(0, 2), adapt_mass=False, **kw)
+    adapted = tn.nuts_chains(lp, u0s, tn.chain_generators(0, 2), **kw)
+    eye = torch.eye(3, dtype=torch.float64) if dense else torch.ones(3, dtype=torch.float64)
+    assert torch.equal(fixed.inv_mass, eye.expand_as(fixed.inv_mass))
+    assert not torch.equal(adapted.inv_mass, eye.expand_as(adapted.inv_mass))
+    start = tn.nuts_chains(lp, u0s, tn.chain_generators(0, 2), num_warmup=0, num_samples=1,
+                           init_step_size=0.3)
+    powers = np.log2(start.step_size.numpy() / 0.3)
+    np.testing.assert_allclose(powers, np.round(powers), atol=1e-9)

@@ -143,3 +143,16 @@ class TestGoldens:
         want = -0.5 * (2 * np.linalg.slogdet(K)[1] + np.sum(yv * np.linalg.solve(K, yv.T).T))
         got = float(tk.loglik(tk.comp_eig_d(t64(Ks), t64(Kt), t64(sig2n), het_exact=True), t64(Y)))
         assert np.isclose(got, want, rtol=1e-10)
+
+    def test_loglik_ntrials_matches_jax(self):
+        """``ntrials=`` sets the trial count of the log-determinant term, as
+        for one block of a larger set of trials: against JAX's ``loglik`` on
+        the same block, and the two halves of 4 trials sum to the whole."""
+        Ks, Kt, sig2n, Y = problem(6, ntrials=4)
+        fac_t = tk.comp_eig_d(t64(Ks), t64(Kt), t64(sig2n), het_exact=True)
+        fac_j = jk.comp_eig_d(Ks, Kt, sig2n, het_exact=True)
+        got = float(tk.loglik(fac_t, t64(Y[:2]), ntrials=4))
+        want = float(jk.loglik(fac_j, jnp.asarray(Y[:2]), ntrials=4))
+        assert np.isclose(got, want, rtol=1e-12, atol=0.0)
+        halves = [float(tk.loglik(fac_t, t64(Y[i:i + 2]), ntrials=2)) for i in (0, 2)]
+        assert np.isclose(sum(halves), float(tk.loglik(fac_t, t64(Y))), rtol=1e-12, atol=0.0)

@@ -1,12 +1,13 @@
 """PyTorch port, the paper run (``gpcsd_tpu_torch/paper_run.py`` and its
 command line ``scripts/torch_paper_nuts_run.py``) at toy lengths on the CPU:
-the stop with exit code 3, the completion from the saved state, the equality
-with an uninterrupted run, and the artifact's schema against the banked JAX
-run's.
+the stops with exit code 3 inside the MAP stage and in the sampler, the
+completion from the saved state, the equality with an uninterrupted run, and
+the artifact's schema against the banked JAX run's.
 """
 
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -29,22 +30,59 @@ INPUTS = ("surrogate_lfp.npz", "map_params.pkl", "mode_params.pkl", "hessian_f64
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Directory ``a``: stopped through the command line, then finished in
-    process; directory ``b``: one uninterrupted run on ``a``'s cached inputs."""
+    """Directory ``a``: stopped twice through the command line (inside the
+    MAP stage, then in the sampler), then finished in process; directory
+    ``b``: one uninterrupted run on ``a``'s cached inputs; directory ``c``:
+    an uninterrupted MAP stage on ``a``'s surrogate."""
     tmp = tmp_path_factory.mktemp("paper_run")
-    a, b = str(tmp / "a"), str(tmp / "b")
-    stop = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "scripts", "torch_paper_nuts_run.py"),
-         "--out-dir", a, "--max-seconds", "0", *TOY],
-        capture_output=True, text=True, cwd=ROOT, env={**os.environ, "OMP_NUM_THREADS": "2"})
+    a, b, c = str(tmp / "a"), str(tmp / "b"), str(tmp / "c")
+
+    def stopped_run():
+        return subprocess.run(
+            [sys.executable, os.path.join(ROOT, "scripts", "torch_paper_nuts_run.py"),
+             "--out-dir", a, "--max-seconds", "0", *TOY],
+            capture_output=True, text=True, cwd=ROOT, env={**os.environ, "OMP_NUM_THREADS": "2"})
+
+    stop_map = stopped_run()
+    after_map_stop = sorted(os.listdir(a))
+    stop = stopped_run()
     after_stop = sorted(os.listdir(a))
     rc_resume = paper_run.main(["--out-dir", a, *TOY])
     os.makedirs(b)
     for name in INPUTS:
         shutil.copy2(os.path.join(a, name), os.path.join(b, name))
     rc_whole = paper_run.main(["--out-dir", b, *TOY])
-    return {"a": a, "b": b, "stop": stop, "after_stop": after_stop,
-            "rc_resume": rc_resume, "rc_whole": rc_whole}
+    os.makedirs(c)
+    shutil.copy2(os.path.join(a, "surrogate_lfp.npz"), os.path.join(c, "surrogate_lfp.npz"))
+    paper_run.fit_map(paper_run.build_model(c, 40, 3, 0, "cpu"), c, restarts=2, maxiter=5, seed=0)
+    return {"a": a, "b": b, "c": c, "stop_map": stop_map, "after_map_stop": after_map_stop,
+            "stop": stop, "after_stop": after_stop, "rc_resume": rc_resume, "rc_whole": rc_whole}
+
+
+def test_stop_inside_the_map_stage_exits_3_with_its_state(runs):
+    """``--max-seconds 0`` stops the MAP fit at its first checkpoint: exit
+    code 3, the optimizer's state on disk and no MAP pickle yet; the rerun
+    continues the fit and goes on to the sampler."""
+    stop = runs["stop_map"]
+    assert stop.returncode == 3, stop.stderr[-2000:]
+    assert "MAP stage: L-BFGS paused at iteration 3" in stop.stdout
+    assert runs["after_map_stop"] == ["map_state.npz", "map_state.structure.pkl",
+                                      "surrogate_lfp.npz"]
+    assert "MAP: restored from cache" not in runs["stop"].stdout
+    assert "MAP: fitted" in runs["stop"].stdout
+
+
+def test_resumed_map_equals_uninterrupted_fit(runs):
+    """The MAP parameters of the stopped and resumed stage equal, bit for
+    bit, those of one uninterrupted fit on the same surrogate."""
+    def params(d):
+        with open(os.path.join(d, "map_params.pkl"), "rb") as f:
+            return pickle.load(f)
+
+    got, want = params(runs["a"]), params(runs["c"])
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]), err_msg=k)
 
 
 def test_stop_exits_3_at_a_saved_transition(runs):

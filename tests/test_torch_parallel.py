@@ -137,6 +137,29 @@ def test_map_fit_sharded_matches_batched_lbfgs(case):
         np.testing.assert_array_equal(u_all, res.u.numpy())
 
 
+def test_map_fit_sharded_init_overrides(case):
+    """``init_overrides`` pins R in every restart's start, as
+    ``sample_restarts(fixed=)`` does: at (chain=2, trial=1) the result
+    equals, bit for bit, one batched L-BFGS from those starts."""
+    fns, Y = case["port"]._fns(), case["port"]._Y()
+    lo, hi = fns.param_set.bounds()
+    u0s = sample_restarts(fns.param_set, np.random.default_rng(W.MAP["seed"]), 4, fixed=W.PINNED)
+    free = sample_restarts(fns.param_set, np.random.default_rng(W.MAP["seed"]), 4)
+    r_col = fns.param_set._offsets["R"][0]
+    pinned = np.log(150.0 / fns.param_set.specs["R"].scale)
+    assert lo[r_col] < pinned < hi[r_col] and np.all(u0s[:, r_col] == pinned)
+    np.testing.assert_array_equal(np.delete(u0s, r_col, axis=1), np.delete(free, r_col, axis=1))
+    res = lbfgs_minimize(lambda u: -fns.log_prob(u, Y), torch.as_tensor(u0s), lo=lo, hi=hi,
+                         max_iter=W.MAP["maxiter"])
+    ranks = case["ranks"]
+    assert ranks[2]["map21_pinned"] is None and ranks[3]["map21_pinned"] is None
+    for r in ranks[:2]:
+        u_all, nll_all = r["map21_pinned"]
+        np.testing.assert_array_equal(nll_all, torch.where(res.failed, torch.inf, res.f).numpy())
+        np.testing.assert_array_equal(u_all, res.u.numpy())
+    assert not np.array_equal(ranks[0]["map21_pinned"][0], ranks[0]["map21"][0])
+
+
 def test_map_fit_sharded_over_trials(case):
     """(chain=2, trial=2): every rank returns the same restarts, each no
     higher than its start, and the NLL it reports is ``-log_prob`` at the

@@ -21,6 +21,8 @@ from gpcsd_tpu_torch.parallel import sharded as S
 NUTS = dict(seed=1, n_chains=4, num_warmup=10, num_samples=10, max_depth=5)
 POSTERIOR = dict(seed=2, n_chains=2, num_warmup=6, num_samples=6, max_depth=4)
 MAP = dict(seed=3, n_restarts=3, maxiter=15)
+#: constrained values pinned in the restarts of one more sharded MAP
+PINNED = {"R": 150.0}
 SMC = dict(seed=4, n_particles=31, n_mutation_steps=2, chunk=5)
 ADVI = dict(seed=5, num_steps=20, n_mc=4)
 REFUSED = {"pool_warmup": True, "state_path": "unused", "callback": print, "laplace": True,
@@ -79,6 +81,7 @@ def _rank_cases(specs, us):
     fns, Y = m._fns(), m._Y()
     out["map21"] = S.map_fit_sharded(fns, Y, mesh21, **MAP)
     out["map22"] = S.map_fit_sharded(fns, Y, mesh22, **MAP)
+    out["map21_pinned"] = S.map_fit_sharded(fns, Y, mesh21, **MAP, init_overrides=PINNED)
     out["nuts"] = _np(S.nuts_sharded(fns, Y, mesh21, **NUTS))
     out["smc"] = _np(S.smc_sharded(fns, Y, mesh22, **SMC))
     out["advi"] = _np(S.advi_sharded(fns, Y, mesh14, **ADVI))
