@@ -38,8 +38,8 @@ Phases, one JSON line each:
    posterior, against the banked CPU-f64 values and the port on the CPU;
 5. the quadform launch count of phase 4 is non-zero;
 6. fit: 2 restarts x 10 L-BFGS-B iterations on the card;
-7. timing: log-joint value+grad evals/s at the JAX bench point, and the
-   kernel vs its plain version at the main-path shape, both as device time
+7. timing: the covariances' and the value's milliseconds at the JAX bench
+   point (its evals/s is phase 32's), and the kernel vs its plain version at the main-path shape, both as device time
    (50 calls captured in one CUDA graph, replays timed with events: no
    host launch cost) and as eager calls timed with events;
 8. predict: ``GPCSD1D.predict(x, t[::4], type="both")`` with the
@@ -146,12 +146,37 @@ Phases, one JSON line each:
    a segment of half-width 1e-2; on the card below 1e-2 log-units and
    within 10x the CPU's;
 31. profiling: ``gpcsd_tpu_torch.utils.profiling`` at the bench point:
-   ``measure_evals_per_second`` and ``Throughput`` over the timing phase's
-   50 points beside that phase's evals/s, and a ``trace`` of 3 value+grad
-   evaluations whose Chrome trace names the quadform kernel.
+   ``measure_evals_per_second`` and ``Throughput`` over the bench's 50
+   points beside the bench phase's evals/s (which keeps each value on the
+   card; these read it to the host after every evaluation), and a ``trace`` of 3 value+grad
+   evaluations whose Chrome trace names the quadform kernel;
+32. bench (after phase 7): ``gpcsd_tpu_torch.bench``, the twin of
+   ``bench.py``: value+grad evals/s over 5 repeats of its 50 distinct points
+   (median, quartiles, CUDA events' ms per evaluation), the numpy baseline,
+   the NUTS line from the banked port paper run (11.43 draws/s, 7.0
+   leapfrogs, max_depth 7, chunk_size 1) and from the live 4 x (40 + 40)
+   run forced with ``paths=[]``: launches = evaluations, the points
+   distinct, the live line a rate with every gate passed or null with its
+   reasons, its launches = the sampler's own count of evaluations plus the
+   Hessian's rows; the device busy time per evaluation under the profiler
+   comes last (line ``bench_profile``, with the 2D point's);
+33. bench_2d (after phase 14): ``bench_2d`` at the Neuropixels point, its
+   numpy baseline, its last value card vs CPU within ``TOL_2D``'s value limit;
+34. nuts_2d: the 2D probe's twin (``gpcsd_tpu_torch.nuts_2d_probe``) at full
+   width in a temporary directory: ``--prep-only`` (surrogate and Laplace
+   Hessian on the card; the Hessian against the CPU's within
+   ``TOL_HESSIAN_2D``), then dense-mass NUTS 4 x (8 + 6) at max_depth 6 from
+   the generating point: launches at (69, 375, 100) = the sampler's own count
+   of evaluations, the rate null exactly when the health gate failed; health
+   reported, not required;
+35. noise_2d: ``noise_probe.probe`` on that surrogate at its generating point,
+   card and CPU, 33 points each: values finite, RMS reported; then
+   ``log_prob`` and its gradient card vs CPU on a second seed's surrogate at
+   its generating point (line ``noise_2d_seed1``), reported.
 
 The quadform launch count is set to 0 before each stretch of the main path
-(log_prob + fit, map_resume, hessian, nuts, log_prob_2d, fit_2d, reparam,
+(log_prob + fit, map_resume, bench, hessian, nuts, log_prob_2d, fit_2d,
+bench_2d, nuts_2d's prep and its sampling, noise_2d, reparam,
 advi, smc, ic, paper_run, noise_probe, profiling, the shifts phase's fit and
 its shift stage, workloads, each
 twin's run in io, workloads_sim and workloads_2d, and each sharded call of
@@ -500,14 +525,15 @@ def phase_nuts(qf, gpu, H, u_center, banked_u, smi):
 ADVI_STEPS, ADVI_N_MC = 12, 8
 SMC_PARTICLES, SMC_MUTATIONS, SMC_MAX_STAGES = 32, 2, 4
 #: the artifact's keys: those of the banked JAX run's JSON, with the device's
-#: name and nvidia-smi line for ``backend`` / ``n_devices``, and the two
-#: verdicts
+#: name and nvidia-smi line for ``backend`` / ``n_devices``, and the
+#: verdicts (``vs_banked``, ``healthy`` and the health gate's failures)
 ARTIFACT_KEYS = {
     "config", "device", "nvidia_smi", "samples_per_s_per_chip_median",
     "samples_per_s_per_chip_wall", "median_sampling_chunk_s", "median_warmup_chunk_s",
     "total_chunk_wall_s", "divergences", "mean_leapfrogs_per_sample", "mean_acceptance",
     "max_rhat", "min_ess", "min_ess_tail", "rhat", "ess", "ess_tail", "step_size",
     "posterior_mean", "posterior_sd", "truth", "posterior_quantiles", "vs_banked", "healthy",
+    "gate_failures",
 }
 
 
@@ -815,18 +841,20 @@ def phase_noise_probe(qf, gpu, cpu, lfp, time_ms, u_center, smi):
     return launches
 
 
-def phase_profiling(qf, dev, smi, timing_evals_per_s):
+def phase_profiling(qf, dev, smi, bench_evals_per_s):
     """``gpcsd_tpu_torch.utils.profiling`` at the bench point: a ``trace`` of
     3 value+grad evaluations (the Chrome trace must name the quadform
     kernel), and ``measure_evals_per_second`` and ``Throughput`` over the
-    ``timing`` phase's 50 points, beside that phase's figure."""
+    bench's 50 points, beside the ``bench`` phase's median.  Those two
+    differ in definition: ``infer.map.value_and_grad`` reads each value to
+    the host, ``bench_evals_per_s`` keeps it on the card."""
+    from gpcsd_tpu_torch.bench import bench_points, build_problem
     from gpcsd_tpu_torch.infer.map import value_and_grad
     from gpcsd_tpu_torch.utils.profiling import Throughput, measure_evals_per_second, trace
 
-    bench = bench_model(dev)
+    bench = build_problem(device=dev)
     bfns, bY = bench._fns(), bench._Y()
-    u0 = bfns.param_set.pack(bench._theta()).cpu().numpy()
-    us = u0[None, :] + 0.01 * np.random.default_rng(1).normal(size=(50, u0.size))
+    us = bench_points(bench, 50)
 
     def step(u):
         return value_and_grad(lambda ut: bfns.neg_log_joint(ut, bY), u, dev)
@@ -850,7 +878,7 @@ def phase_profiling(qf, dev, smi, timing_evals_per_s):
     kernels = sorted(n for n in names if "quadform" in n)
     launches = qf.launch_count
     emit("profiling", card=smi, measure_evals_per_s=rate, throughput_evals_per_s=tp.rate,
-         timing_phase_evals_per_s=timing_evals_per_s, trace_bytes=trace_bytes,
+         bench_phase_evals_per_s=bench_evals_per_s, trace_bytes=trace_bytes,
          trace_quadform_names=[k[:80] for k in kernels], launches=launches)
     check(any("quadform_gemm_kernel" in k for k in kernels),
           f"profiling: the trace names no quadform kernel launch ({kernels})")
@@ -860,32 +888,23 @@ def phase_profiling(qf, dev, smi, timing_evals_per_s):
 
 
 def phase_timing(qf, dev, smi):
-    """Log-joint value+grad evals/s at the bench point, and the quadform
-    kernel against its plain version at the main-path shape.  Returns the
-    kernel's and the plain version's device milliseconds and the evals/s."""
-    from gpcsd_tpu_torch.infer.map import value_and_grad
+    """The covariances' and the log-likelihood value's milliseconds at the
+    bench point, and the quadform kernel against its plain version at the
+    main-path shape.  Returns the kernel's and the plain version's device
+    milliseconds."""
+    from gpcsd_tpu_torch.bench import build_problem
 
-    bench = bench_model(dev)
+    bench = build_problem(device=dev)
     bfns, bY = bench._fns(), bench._Y()
     u0 = bfns.param_set.pack(bench._theta()).cpu().numpy()
-    us = u0[None, :] + 0.01 * np.random.default_rng(1).normal(size=(50, u0.size))
-    for u in us[:3]:
-        value_and_grad(lambda ut: bfns.neg_log_joint(ut, bY), u, dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for u in us:
-        value_and_grad(lambda ut: bfns.neg_log_joint(ut, bY), u, dev)
-    torch.cuda.synchronize()
-    evals_per_s = len(us) / (time.perf_counter() - t0)
     with torch.no_grad():
         theta = bfns.param_set.unpack(torch.as_tensor(u0, device=dev))
         factor_ms = cuda_ms(lambda: bfns.build_factors(theta), 20)
         value_ms = cuda_ms(lambda: bfns.loglik(theta, bY), 20)
 
     kt = kernel_times(qf, SHAPE_1D, dev)
-    emit("timing", card=smi, log_joint_value_grad_evals_per_s=evals_per_s,
-         covariances_and_eighs_ms=factor_ms, loglik_value_ms=value_ms, **kt)
-    return kt["quadform_device_ms"], kt["quadform_plain_device_ms"], evals_per_s
+    emit("timing", card=smi, covariances_and_eighs_ms=factor_ms, loglik_value_ms=value_ms, **kt)
+    return kt["quadform_device_ms"], kt["quadform_plain_device_ms"]
 
 
 def kernel_times(qf, shape, dev):
@@ -1948,6 +1967,194 @@ def phase_parallel_ranks(lfp, time_ms, us, dev, smi, timeout=600.0):
     return by_phase
 
 
+# ------------------------------------- the bench twins and the 2D posterior
+
+#: the banked port paper run's numbers, which the bench's artifact route
+#: must return
+BANKED_RATE, BANKED_LEAPFROGS = 11.432655392025252, 7.0
+#: the 2D probe's run in phase nuts_2d: chains, warmup, samples, max_depth
+NUTS_2D = {"--chains": "4", "--warmup": "8", "--samples": "6", "--max-depth": "6"}
+#: the 2D probe's Laplace Hessian, card vs CPU, as a share of max |H|: over
+#: the whole matrix and away from the spatial rows (R, ell1, ell2).  The
+#: spatial gradient carries each eigensolver's placement of the Gram's
+#: roundoff-level eigenvalues, which the stencil divides by 2h = 2e-4.  H100
+#: readings at the probe's surrogate: 4.6e-5 and 8.9e-12 (max |H| 1.18e6);
+#: each limit leaves a factor of ~10
+TOL_HESSIAN_2D = {"all": 5e-4, "rest": 1e-10}
+
+
+def phase_bench(qf, dev, smi):
+    """``gpcsd_tpu_torch.bench`` (the twin of ``bench.py``) at its point:
+    evals/s over 5 repeats of 50 distinct points (median, quartiles, the
+    events' ms per evaluation), the numpy baseline, the NUTS line from the
+    banked paper run and, forced with ``paths=[]``, from the live 4 x (40 +
+    40) run.  Returns the launches, the bench model and the median evals/s."""
+    from gpcsd_tpu_torch import bench
+    from gpcsd_tpu_torch.infer import nuts
+
+    m = bench.build_problem(device=dev)
+    qf.launch_count = 0
+    qf.launches_by_shape.clear()
+    res = bench.bench_evals_per_s(m)
+    launches_evals = qf.launch_count
+    base = bench.bench_baseline(m)
+    art = bench.bench_nuts(base)
+    nuts.evaluations = 0
+    before = qf.launch_count
+    t0 = time.perf_counter()
+    live = bench.bench_nuts(base, paths=[], device=dev)
+    live_s = time.perf_counter() - t0
+    live_launches, live_evals = qf.launch_count - before, nuts.evaluations
+    launches, shapes = qf.launch_count, dict(qf.launches_by_shape)
+    hessian_rows = 2 * len(m._fns().param_set.names_flat())
+    line = lambda nl: {k: v for k, v in nl._asdict().items()}  # noqa: E731
+    emit("bench", card=smi, evals_per_s_median=res["median"], evals_per_s_q25=res["q25"],
+         evals_per_s_q75=res["q75"], evals_per_s_repeats=[r["evals_per_s"] for r in res["repeats"]],
+         event_ms_per_eval=res["event_ms_per_eval"],
+         event_ms_per_eval_repeats=[r["event_ms_per_eval"] for r in res["repeats"]],
+         first_call_s=res["first_call_s"], evals=res["evals"], launches_evals=launches_evals,
+         numpy_baseline_evals_per_s=base, vs_baseline=res["median"] / base,
+         artifact_route=line(art), live_route=line(live), live_seconds=live_s,
+         live_launches=live_launches, live_sampler_evaluations=live_evals, launches=launches)
+    check(launches_evals == res["launches"] == res["evals"],
+          f"bench: {launches_evals} launches for {res['evals']} evaluations")
+    check(len(np.unique(res["points"], axis=0)) == 50, "bench: the 50 points are not distinct")
+    check(abs(art.rate - BANKED_RATE) < 1e-9 and art.steps == BANKED_LEAPFROGS
+          and (art.max_depth, art.chunk_size) == (7, 1),
+          f"bench: the artifact route gave {art}")
+    check((live.rate is None and len(live.failures) > 0)
+          or (live.rate is not None and live.rate > 0 and not live.failures),
+          f"bench: the live route gave rate {live.rate} with failures {live.failures}")
+    check(live_launches == live_evals + hessian_rows > hessian_rows,
+          f"bench: {live_launches} live launches for {live_evals} sampler evaluations "
+          f"and {hessian_rows} Hessian rows")
+    check(set(shapes) == {SHAPE_1D}, f"bench: launches at {shapes}")
+    return launches, m, res["median"]
+
+
+def phase_bench_2d(qf, gpu, cpu, smi):
+    """``gpcsd_tpu_torch.bench.bench_2d`` (the twin of ``scripts/bench_2d.py``)
+    at the Neuropixels point, its numpy baseline, and its last value against
+    the CPU's (``TOL_2D``'s value limit)."""
+    from gpcsd_tpu_torch import bench
+
+    qf.launch_count = 0
+    res = bench.bench_2d(gpu)
+    launches = qf.launch_count
+    base = bench.bench_baseline_2d(gpu)
+    with torch.no_grad():
+        v_cpu = float(cpu._fns().neg_log_joint(torch.as_tensor(res["points"][-1]), cpu._Y()))
+    err = rel(res["value"], v_cpu)
+    emit("bench_2d", card=smi, evals_per_s_median=res["median"], evals_per_s_q25=res["q25"],
+         evals_per_s_q75=res["q75"], evals_per_s_repeats=[r["evals_per_s"] for r in res["repeats"]],
+         event_ms_per_eval=res["event_ms_per_eval"], first_call_s=res["first_call_s"],
+         neg_log_joint=res["value"], neg_log_joint_cpu=v_cpu, rel_err=err, evals=res["evals"],
+         numpy_baseline_evals_per_s=base, vs_baseline=res["median"] / base, launches=launches)
+    check(launches == res["evals"], f"bench_2d: {launches} launches for {res['evals']} evaluations")
+    check(err <= TOL_2D["value"], f"bench_2d: card vs CPU {err} above {TOL_2D['value']}")
+    return launches
+
+
+def phase_nuts_2d(qf, dev, smi, tmp):
+    """The 2D probe's twin (``gpcsd_tpu_torch.nuts_2d_probe``) at full width
+    in ``tmp``: its prep (surrogate and Laplace Hessian on the card), the
+    Hessian against the CPU's, then dense-mass NUTS 4 x (8 + 6) at max_depth
+    6 from the generating point.  Health is reported, not required.
+    Returns the launches and the probe's model on the CPU."""
+    from gpcsd_tpu_torch import nuts_2d_probe as probe
+    from gpcsd_tpu_torch.infer import nuts
+    from gpcsd_tpu_torch.models.inference_api import laplace_hessian
+
+    args = ["--out-dir", tmp, "--device", str(dev), "--dense-mass",
+            *(a for kv in NUTS_2D.items() for a in kv)]
+    qf.launch_count = 0
+    qf.launches_by_shape.clear()
+    t0 = time.perf_counter()
+    rc_prep = probe.main([*args, "--prep-only"])
+    prep_s = time.perf_counter() - t0
+    launches_prep = qf.launch_count
+    with np.load(os.path.join(tmp, "hessian_f64_2d.npz")) as d:
+        H_card, u0 = d["H"], d["u0"]
+    cpu = probe.build_probe_model(tmp, 0, device="cpu")
+    t0 = time.perf_counter()
+    H_cpu = laplace_hessian(cpu._fns(), u0, cpu._Y())
+    cpu_s = time.perf_counter() - t0
+    scale = np.max(np.abs(H_cpu))
+    h_err = {"all": float(np.max(np.abs(H_card - H_cpu)) / scale),
+             "rest": float(np.max(np.abs(H_card[3:, 3:] - H_cpu[3:, 3:])) / scale)}
+    qf.launch_count = 0
+    qf.launches_by_shape.clear()
+    nuts.evaluations = 0
+    t0 = time.perf_counter()
+    rc = probe.main(args)
+    seconds = time.perf_counter() - t0
+    launches, evals, shapes = qf.launch_count, nuts.evaluations, dict(qf.launches_by_shape)
+    with open(os.path.join(tmp, "nuts_2d_probe.json")) as f:
+        art = json.load(f)
+    with np.load(os.path.join(tmp, "posterior_samples_2d.npz")) as d:
+        draws = d["raw_u"]
+    emit("nuts_2d", card=smi, exit_codes=[rc_prep, rc], prep_seconds=prep_s,
+         hessian_cpu_seconds=cpu_s, hessian_max_abs=scale, hessian_rel_err=h_err,
+         hessian_eigs=np.linalg.eigvalsh(H_card).tolist(), seconds=seconds,
+         launches_prep=launches_prep, launches=launches, sampler_evaluations=evals,
+         **{k: art[k] for k in ("samples_per_s_per_chip_median", "median_sampling_transition_s",
+                                "mean_leapfrogs_per_sample", "mean_acceptance", "divergences",
+                                "max_rhat", "min_ess", "min_ess_tail", "step_size", "healthy",
+                                "gate_failures", "config")})
+    check([rc_prep, rc] == [0, 0], f"nuts_2d: exit codes {[rc_prep, rc]}")
+    check(launches_prep == 2 * u0.size, f"nuts_2d: {launches_prep} launches for the Hessian")
+    for key, tol in TOL_HESSIAN_2D.items():
+        check(h_err[key] <= tol, f"nuts_2d: Hessian card vs CPU ({key}) {h_err[key]} above {tol}")
+    check(launches == evals > 0, f"nuts_2d: {launches} launches for {evals} sampler evaluations")
+    check(set(shapes) == {SHAPE_2D}, f"nuts_2d: launches at {shapes}")
+    check((art["samples_per_s_per_chip_median"] is None) == bool(art["gate_failures"]),
+          "nuts_2d: the artifact's rate and its gate disagree")
+    check(draws.shape == (4, 6, u0.size) and np.all(np.isfinite(draws)),
+          f"nuts_2d: draws of shape {draws.shape}, finite {np.all(np.isfinite(draws))}")
+    return launches_prep + launches, cpu
+
+
+def phase_noise_2d(qf, dev, cpu, tmp, smi):
+    """The likelihood noise probe (``noise_probe.probe``, 33 points over a
+    segment of half-width 1e-2) on the 2D probe's surrogate at its
+    generating point, card and CPU; then ``log_prob`` and its gradient card
+    vs CPU at a second seed's surrogate and generating point."""
+    from gpcsd_tpu_torch import noise_probe
+    from gpcsd_tpu_torch import nuts_2d_probe as probe
+    from gpcsd_tpu_torch.infer.map import value_and_grad
+
+    gpu = probe.build_probe_model(tmp, 0, device=dev)
+    u0 = gpu._fns().param_set.pack(gpu._theta()).cpu().numpy()
+    qf.launch_count = 0
+    t0 = time.perf_counter()
+    card = noise_probe.probe(gpu, u0)
+    card_s = time.perf_counter() - t0
+    launches = qf.launch_count
+    host = noise_probe.probe(cpu, u0)
+    emit("noise_2d", card=smi, scale=1e-2, npts=33, launches=launches, card_seconds=card_s,
+         **{f"{k}_{where}": r[k] for where, r in (("card", card), ("cpu", host))
+            for k in ("rms", "max_abs_residual", "center", "range")})
+    check(np.all(np.isfinite(card["logp"])) and np.all(np.isfinite(host["logp"])),
+          "noise_2d: a value is not finite")
+    check(launches == 33, f"noise_2d: {launches} launches for 33 evaluations")
+    # the second seed: the CPU draws the surrogate, the card reads its cache
+    tmp1 = os.path.join(tmp, "seed1")
+    os.makedirs(tmp1)
+    cpu1 = probe.build_probe_model(tmp1, 1, device="cpu")
+    gpu1 = probe.build_probe_model(tmp1, 1, device=dev)
+    u1 = cpu1._fns().param_set.pack(cpu1._theta()).cpu().numpy()
+    before = qf.launch_count
+    v, g = value_and_grad(lambda ut: gpu1._fns().log_prob(ut, gpu1._Y()), u1, dev)
+    launches_seed1 = qf.launch_count - before
+    vc, gc = value_and_grad(lambda ut: cpu1._fns().log_prob(ut, cpu1._Y()), u1, "cpu")
+    emit("noise_2d_seed1", card=smi, log_prob_card=v, log_prob_cpu=vc, value_abs_err=abs(v - vc),
+         value_rel_err=rel(v, vc), grad_rel_err=rel_norm(g, gc))
+    check(np.isfinite(v) and np.all(np.isfinite(g)), "noise_2d: seed 1 log_prob is not finite")
+    check(launches_seed1 == 1, f"noise_2d: {launches_seed1} launches for seed 1's evaluation")
+    return launches + launches_seed1
+
+
+
 def npx_shapes(by_shape):
     """The Neuropixels twin's shapes among ``by_shape``'s keys."""
     return sorted(k for k in by_shape if k[:2] == (NPX_NX, NPX_NT))
@@ -1957,15 +2164,14 @@ def main():
     check(torch.cuda.is_available(), "CUDA is not available: this check needs a GPU")
     sys.path.insert(0, ROOT)
     from gpcsd_tpu_torch import paper
+    from gpcsd_tpu_torch.bench import device_busy_ms_per_eval
     from gpcsd_tpu_torch.infer.map import sample_restarts, value_and_grad
     from gpcsd_tpu_torch.ops.cuda import quadform as qf
+    from gpcsd_tpu_torch.utils.profiling import nvidia_smi
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     emit("device", torch=torch.__version__, cuda=torch.version.cuda, name=name,
          count=torch.cuda.device_count(), nvidia_smi=smi)
 
@@ -2025,7 +2231,8 @@ def main():
 
     # before the nuts phase, whose profiler may leave its tracing cost on the
     # process's later launches
-    device_ms, plain_device_ms, evals_per_s = phase_timing(qf, dev, smi)
+    device_ms, plain_device_ms = phase_timing(qf, dev, smi)
+    launches_bench, bench_model, evals_per_s = phase_bench(qf, dev, smi)
 
     # ---- the 2D path at the Neuropixels shape; its profile comes last
     gpu2d = paper.neuropixels_problem(0, device=dev)
@@ -2034,7 +2241,17 @@ def main():
     launches_fit_2d = phase_fit_2d(qf, paper, dev)
     phase_predict_2d(gpu2d, cpu2d)
     timing_2d = phase_timing_2d(qf, gpu2d, smi)
+    launches_2d = {"log_prob_2d": launches_log_prob_2d, "fit_2d": launches_fit_2d,
+                   "bench_2d": phase_bench_2d(qf, gpu2d, cpu2d, smi)}
     del cpu2d
+    # ---- the 2D posterior: the probe's twin and the density's noise there
+    tmp2d = tempfile.mkdtemp(prefix="nuts_2d_")
+    try:
+        launches_2d["nuts_2d"], cpu_probe = phase_nuts_2d(qf, dev, smi, tmp2d)
+        launches_2d["noise_2d"] = phase_noise_2d(qf, dev, cpu_probe, tmp2d, smi)
+    finally:
+        shutil.rmtree(tmp2d, ignore_errors=True)
+    del cpu_probe
 
     # ---- the posterior path, at the banked posterior's centre (the 2 x 10
     # MAP steps above stop far from the mode, where a Hessian is useless)
@@ -2045,7 +2262,7 @@ def main():
     H, launches_hessian = phase_hessian(qf, gpu, cpu, u_center, banked_u)
     launches_nuts, post = phase_nuts(qf, gpu, H, u_center, banked_u, smi)
     launches_by_phase = {"log_prob": launches_log_prob, "fit": launches_map - launches_log_prob,
-                         "map_resume": launches_map_resume,
+                         "map_resume": launches_map_resume, "bench": launches_bench,
                          "hessian": launches_hessian, "nuts": launches_nuts}
 
     # ---- the other posterior engines, model comparison and the paper run
@@ -2078,8 +2295,9 @@ def main():
     par_sharded = {ph: d.get(SHAPE_SHARDED, 0) for ph, d in par.items() if d.get(SHAPE_SHARDED, 0)}
     check(sum(par_sharded.values()) > 0, f"the trial-sharded block {SHAPE_SHARDED} launched no kernel")
 
-    launches_2d = {"log_prob_2d": launches_log_prob_2d, "fit_2d": launches_fit_2d}
     emit("timing_2d", **timing_2d, **profile_2d(gpu2d))
+    emit("bench_profile", card=smi, bench=device_busy_ms_per_eval(bench_model),
+         bench_2d=device_busy_ms_per_eval(gpu2d))
     analysis = {}
     for shape in (SHAPE_AUD, SHAPE_FMF, SHAPE_SHIFT):
         kt = kernel_times(qf, shape, dev)
@@ -2154,24 +2372,6 @@ def main():
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
-
-
-def bench_model(dev):
-    """The JAX headline benchmark's point (``bench.py`` ``build_problem``):
-    nx=24, nt=600, 100 trials, ngl=100, scalar noise."""
-    from gpcsd_tpu_torch.models.gpcsd1d import GPCSD1D
-
-    rng = np.random.default_rng(0)
-    m = GPCSD1D(rng.normal(size=(24, 600, 100)), (np.arange(24) * 100.0).reshape(-1, 1),
-                np.arange(600).reshape(-1, 1) * 1.0, ngl=100, device=dev)
-    m.R["value"] = 150.0
-    m.spatial_cov.params["ell"]["value"] = 200.0
-    m.temporal_cov_list[0].params["ell"]["value"] = 8.0
-    m.temporal_cov_list[0].params["sigma2"]["value"] = 1.0
-    m.temporal_cov_list[1].params["ell"]["value"] = 3.0
-    m.temporal_cov_list[1].params["sigma2"]["value"] = 0.5
-    m.sig2n["value"] = 0.05
-    return m
 
 
 if __name__ == "__main__":

@@ -79,6 +79,11 @@ MAX_DELTA_ENERGY = 1000.0
 #: boundaries; this is its default chunk size).
 POOL_EVERY = 10
 
+#: Rows of the log-density whose value and gradient :func:`nuts_chains` has
+#: evaluated since import (a caller may reset it to 0): the sampler's own
+#: count of evaluations, the step-size search and warmup included.
+evaluations = 0
+
 
 class TransitionNoise(NamedTuple):
     """The random numbers one NUTS transition consumes, per chain."""
@@ -441,6 +446,8 @@ def nuts_chains(
         raise ValueError(f"{len(gens)} generators for {nchains} chains")
 
     def vg(z):
+        global evaluations
+        evaluations += z.shape[0]
         return value_and_grad_rows(log_prob, z)
 
     if dense_mass:

@@ -28,12 +28,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 
 import numpy as np
 import torch
 
 from . import config, paper_run
+from .utils.profiling import nvidia_smi
 
 
 def probe(model, u0, scale=1e-2, npts=33, seed=0) -> dict:
@@ -85,12 +85,7 @@ def main(argv=None) -> int:
     u0 = model._fns().param_set.pack(model._theta()).cpu().numpy()
     res = probe(model, u0, args.scale, args.npts, args.seed)
 
-    card = None
-    if device.type == "cuda":
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True,
-        ).stdout.strip().splitlines()[0]
+    card = nvidia_smi() if device.type == "cuda" else None
     print("device: %s (%s)" % (device, card or "no card"))
     print("logp(center) = %.3f" % res["center"])
     print("range over segment = %.3f" % res["range"])

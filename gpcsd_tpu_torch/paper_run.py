@@ -33,17 +33,18 @@ import argparse
 import json
 import os
 import pickle
-import subprocess
 import time
 
 import numpy as np
 import torch
 
 from . import config, paper
+from .bench import artifact_gate_failures
 from .infer.diagnostics import ess_bulk
 from .infer.lbfgs import LBFGSTimeBudget, lbfgs_minimize
 from .io.checkpoint import load_params, save_params
 from .models.inference_api import laplace_hessian
+from .utils.profiling import nvidia_smi
 
 #: the banked JAX posterior this run is compared with, relative to the
 #: repository root
@@ -255,12 +256,7 @@ def main(argv=None) -> int:
     per_name = {key: {k: float(v) for k, v in diag.get(key, {}).items()}
                 for key in ("rhat", "ess", "ess_tail")}
     rhat, ess, ess_t = per_name["rhat"], per_name["ess"], per_name["ess_tail"]
-    smi = None
-    if device.type == "cuda":
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True,
-        ).stdout.strip().splitlines()[0]
+    smi = nvidia_smi() if device.type == "cuda" else None
     with np.load(out("surrogate_lfp.npz")) as dsur:
         nt = int(np.sum(dsur["time_ms"] < 0))
         truth = {k[len("truth_"):]: float(dsur[k]) for k in dsur.files if k.startswith("truth_")}
@@ -301,10 +297,12 @@ def main(argv=None) -> int:
         },
         "vs_banked": vs_banked(samples_u, names, args.banked),
     }
-    result["healthy"] = bool(
-        rhat and result["max_rhat"] < 1.05 and result["divergences"] == 0
-        and float(diag["step_size"].min()) > 1e-3
-    )
+    # the one health gate of every posterior artifact; a run that fails it
+    # publishes no rate (the median transition stays in median_sampling_chunk_s)
+    result["gate_failures"] = artifact_gate_failures(result)
+    result["healthy"] = not result["gate_failures"]
+    if not result["healthy"]:
+        result["samples_per_s_per_chip_median"] = result["samples_per_s_per_chip_wall"] = None
     _replace_with(out("paper_nuts_auditory.json"),
                   lambda f: json.dump(result, f, indent=1), "w")
     # full constrained draws + per-transition diagnostics

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 from dataclasses import dataclass, field
 
@@ -26,6 +27,17 @@ def _sync():
     """Wait for the card's queued work, if this process has used CUDA."""
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+def nvidia_smi() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them
+    (``"NVIDIA H100 80GB HBM3, 700.00 W"``): every number measured on a card
+    is kept beside this line."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 @contextlib.contextmanager

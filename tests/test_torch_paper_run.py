@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from gpcsd_tpu_torch import paper_run
+from gpcsd_tpu_torch import bench, paper_run
 
 torch.set_num_threads(2)
 
@@ -116,14 +116,17 @@ def test_rerun_completes_and_equals_uninterrupted_run(runs):
 
 def test_artifact_schema_matches_banked_run(runs):
     """The JSON's keys are the banked JAX run's apart from ``backend`` /
-    ``n_devices`` (here ``device`` / ``nvidia_smi``), plus ``vs_banked`` and
-    ``healthy``; the nested dicts carry the same parameter names; the draws
-    file holds the banked file's arrays."""
+    ``n_devices`` (here ``device`` / ``nvidia_smi``), plus ``vs_banked``,
+    ``healthy`` and ``gate_failures``; the nested dicts carry the same
+    parameter names; the draws file holds the banked file's arrays.  A CPU
+    run of 2 x 4 draws fails the shared health gate, so it publishes no
+    rate."""
     with open(os.path.join(runs["a"], "paper_nuts_auditory.json")) as f:
         art = json.load(f)
     with open(os.path.join(BANKED, "paper_nuts_auditory.json")) as f:
         banked = json.load(f)
-    assert set(art) - set(banked) == {"device", "nvidia_smi", "vs_banked", "healthy"}
+    assert set(art) - set(banked) == {"device", "nvidia_smi", "vs_banked", "healthy",
+                                      "gate_failures"}
     assert set(banked) - set(art) == {"backend", "n_devices"}
     assert set(art["config"]) == set(banked["config"])
     assert art["config"] == {**banked["config"], "nt": 20, "ntrials": 3, "chains": 2, "warmup": 6,
@@ -134,7 +137,10 @@ def test_artifact_schema_matches_banked_run(runs):
     assert art["posterior_quantiles"]["R"].keys() == banked["posterior_quantiles"]["R"].keys()
     assert art["device"] == "cpu" and art["nvidia_smi"] is None
     assert isinstance(art["healthy"], bool) and len(art["step_size"]) == 2
-    assert art["samples_per_s_per_chip_median"] > 0 and art["samples_per_s_per_chip_wall"] > 0
+    assert art["gate_failures"] == bench.artifact_gate_failures({**art, "samples_per_s_per_chip_median": 1.0})
+    assert not art["healthy"] and "device 'cpu' is not an NVIDIA card" in art["gate_failures"]
+    assert art["samples_per_s_per_chip_median"] is None and art["samples_per_s_per_chip_wall"] is None
+    assert art["median_sampling_chunk_s"] > 0 and art["total_chunk_wall_s"] > 0
     # the comparison with the banked posterior: one z per parameter, from
     # both runs' means, sds and bulk ESS
     assert set(art["vs_banked"]) == set(banked["rhat"])
@@ -144,6 +150,26 @@ def test_artifact_schema_matches_banked_run(runs):
         assert np.isclose(z["banked_mean"], d["raw_u"][..., 3].mean())
         with np.load(os.path.join(runs["a"], "posterior_samples.npz")) as mine:
             assert set(d.files) <= set(mine.files)
+
+
+def test_healthy_run_publishes_its_rates(runs, tmp_path, monkeypatch):
+    """Where the shared gate passes (a CPU run of 2 x 4 draws cannot, so the
+    gate is stubbed to pass here), a rerun on a copy of the finished
+    directory publishes the chains over the median sampling transition and
+    the sampling draws over the summed sampling transitions."""
+    d = str(tmp_path / "a")
+    shutil.copytree(runs["a"], d)
+    monkeypatch.setattr(paper_run, "artifact_gate_failures", lambda art: [])
+    assert paper_run.main(["--out-dir", d, *TOY]) == 0
+    with open(os.path.join(d, "paper_nuts_auditory.json")) as f:
+        art = json.load(f)
+    with open(os.path.join(d, "chunk_timing.json")) as f:
+        samp = [v for k, v in json.load(f).items() if int(k) >= 6]
+    assert art["healthy"] and art["gate_failures"] == [] and len(samp) == 4
+    assert art["median_sampling_chunk_s"] == float(np.median(samp)) > 0
+    assert art["samples_per_s_per_chip_median"] == 2 / art["median_sampling_chunk_s"]
+    assert art["samples_per_s_per_chip_wall"] == pytest.approx(2 * 4 / sum(samp), rel=1e-12)
+    assert art["samples_per_s_per_chip_wall"] > 0
 
 
 def test_vs_banked_absent_or_other_size(tmp_path):
