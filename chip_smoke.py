@@ -94,19 +94,26 @@ Phases, one JSON line each:
    the signal phase's phases (d=48, n=60), card vs CPU; the bootstrap of
    200 replicates at d=48: ms per replicate, peak memory, replicates vs the
    fit on their trials;
-22. shifts: ``estimate_shifts`` at fit_mean_function's default shape from
-   one model fitted on the card: card vs CPU, launches against the
-   optimizer's count of evaluations;
+22. shifts: the per-trial kernel (``quadform_rows``) against its plain
+   version per trial, its sum against the scalar kernel, its gradients and
+   a repeat call at (24, 60, 40) (line ``kernel_rows``); then
+   ``estimate_shifts`` at fit_mean_function's default shape from one model
+   fitted on the card: card vs CPU, and per-trial kernel launches equal to
+   the stage's batched evaluations (calls of ``shift_nll``), none of the
+   scalar kernel;
 23. workloads: both workload twins' ``run()`` on the card at full width
    (restarts cut to 3): seconds per stage, the JAX tests' thresholds,
-   launches by shape;
+   launches by shape, the shift stage's launches as in phase 22;
 24. io: the native parser built on this host (else the script fails), the
    auditory twin's surrogate written in the reference's text format (2
    probes x 24 electrodes, 400 samples, 60 trials), loaded cold and from
    its ``.npy`` cache, equal to the written arrays and, parsed natively, to
    ``np.loadtxt`` bit for bit; then the real-data modes on those files:
-   ``auditory_lfp.run(data_dir=)``, ``fit_mean_function.run_real`` with the
-   stage-1 pickles that run wrote, and ``neuropixels.run(data_dir=)`` on two
+   ``auditory_lfp.run(data_dir=)`` (its figures drawn where matplotlib
+   imports, else one line says which was skipped),
+   ``fit_mean_function.run_real`` with the stage-1 pickles that run wrote
+   (its shift stage's seconds, and launches checked as in phase 22), and
+   ``neuropixels.run(data_dir=)`` on two
    pickles in ``extract_probe``'s schema at ngl 10 x 30 (restarts, ngl and
    nboot cut, each cut printed);
 25. workloads_sim: ``simple_template_1d``, ``sim_from_gp_1d`` (fit and
@@ -121,7 +128,9 @@ Phases, one JSON line each:
 27. timing_analysis and timing_new_shapes: the kernel vs its plain version
    at the shapes the analysis stages and the other twins give it (device
    time, CUDA graph of 50 calls), each new shape first checked as in
-   phase 3;
+   phase 3; timing_rows: the per-trial kernel the same way, with its bound,
+   at the two shift stages' full batches (24, 60, 40) and (24, 151, 60),
+   the second first checked as in phase 22;
 28. parallel (``gpcsd_tpu_torch/parallel/``, run before phase 27): (a)
    ``parallel_ws1``, a process group of one rank over NCCL and the default
    mesh: the trial-sharded value+grad at the banked centre and 3 jitters
@@ -174,7 +183,8 @@ Phases, one JSON line each:
    ``log_prob`` and its gradient card vs CPU on a second seed's surrogate at
    its generating point (line ``noise_2d_seed1``), reported.
 
-The quadform launch count is set to 0 before each stretch of the main path
+The quadform launch counts (the scalar kernel's and, apart from it, the
+per-trial kernel's) are set to 0 before each stretch of the main path
 (log_prob + fit, map_resume, bench, hessian, nuts, log_prob_2d, fit_2d,
 bench_2d, nuts_2d's prep and its sampling, noise_2d, reparam,
 advi, smc, ic, paper_run, noise_probe, profiling, the shifts phase's fit and
@@ -210,17 +220,23 @@ PEAK_HBM_BYTES_PER_S = 3.35e12
 #: the shapes the two main paths give the kernel: (nx, nt, ntrials)
 SHAPE_1D, SHAPE_2D = (24, 600, 100), (69, 375, 100)
 #: the shapes the analysis stages give it: the auditory twin's fit (200
-#: baseline samples of 400, 60 trials), fit_mean_function's fit and its
-#: shift stage (one trial per launch)
+#: baseline samples of 400, 60 trials) and fit_mean_function's fit; and one
+#: trial at the shift stage's width (the shift stage itself goes through the
+#: per-trial kernel, at :data:`SHAPE_ROWS_SHIFT`)
 SHAPE_AUD, SHAPE_FMF, SHAPE_SHIFT = (24, 200, 60), (24, 60, 40), (24, 60, 1)
 #: the shapes the remaining twins give it at their defaults: sim_from_gp_1d's
 #: fit, the mismatch study's fits and SMC, sim_from_gp_2d's fit (a 4 x 25
 #: grid), simple_template_1d's fits (one trial), and the real-data evoked
-#: twin's shift stage (151 samples of the 0-150 ms window); the Neuropixels
-#: twin's (36 sites, 150 samples, the trials its outlier rejection keeps) is
-#: known after its run
+#: twin's shift stage width (151 samples of the 0-150 ms window) at one
+#: trial; the Neuropixels twin's (36 sites, 150 samples, the trials its
+#: outlier rejection keeps) is known after its run
 SHAPE_SIM1D, SHAPE_MISMATCH, SHAPE_SIM2D = (24, 60, 100), (24, 50, 50), (100, 30, 3)
 SHAPE_TEMPLATE, SHAPE_REAL_SHIFT = (24, 50, 1), (24, 151, 1)
+#: the per-trial kernel's shapes at the shift stages' first batched
+#: evaluation (all trials; later ones take the trials still searching):
+#: fit_mean_function's 40 trials, and the real-data twin's 60 (the io
+#: phase's written files) at 151 samples
+SHAPE_ROWS_SHIFT, SHAPE_ROWS_REAL = (24, 60, 40), (24, 151, 60)
 NPX_NX, NPX_NT = 36, 150
 KERNEL_SHAPES = [
     SHAPE_1D, SHAPE_2D, SHAPE_AUD, SHAPE_FMF, SHAPE_SHIFT, SHAPE_SIM1D, SHAPE_MISMATCH,
@@ -323,6 +339,84 @@ def check_kernel(qf, shape, dev, gen):
     return abs(got - want)
 
 
+def check_rows_kernel(qf, shape, dev, gen):
+    """The per-trial kernel (``quadform_rows``) vs its plain version at
+    ``shape``: every trial to 1e-12 relative, the sum to 1e-13 of the scalar
+    kernel on the same inputs, gradients under a cotangent that weights the
+    trials differently to 1e-10, two calls bit-equal.  Returns the largest
+    abs error over the trials."""
+    ins = kernel_inputs(gen, *shape, dev)
+    got = qf.quadform_rows_cuda(*ins)
+    again = qf.quadform_rows_cuda(*ins)
+    want = qf.quadform_rows_reference(*ins)
+    total = float(qf.quadform_cuda(*ins))
+    torch.cuda.synchronize()
+    err = float(torch.max(torch.abs(got - want) / torch.abs(want)))
+    sum_err = rel(float(got.sum()), total)
+    check(tuple(got.shape) == (shape[2],) and err <= 1e-12,
+          f"quadform_rows {shape}: rel err {err} against the plain version")
+    check(torch.equal(got, again), f"quadform_rows {shape}: two calls differ")
+    check(sum_err <= 1e-13, f"quadform_rows {shape}: sum vs the scalar kernel {sum_err}")
+    w = torch.linspace(-1.0, 2.0, shape[2], dtype=torch.float64, device=dev)
+    a = [t.clone().requires_grad_() for t in ins]
+    b = [t.clone().requires_grad_() for t in ins]
+    ga = torch.autograd.grad((qf.quadform_rows(*a) * w).sum(), a)
+    gb = torch.autograd.grad((qf.quadform_rows_reference(*b) * w).sum(), b)
+    gerr = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(ga, gb))
+    check(gerr <= 1e-10, f"quadform_rows gradient {shape}: rel err {gerr}")
+    emit("kernel_rows", shape=list(shape), rel_err=err, sum_rel_err_vs_scalar=sum_err,
+         grad_rel_err=gerr, bit_equal_repeat=True)
+    return float(torch.max(torch.abs(got - want)))
+
+
+class ShiftStageCount:
+    """Counts, from 0, the shift stage's batched evaluations (calls of
+    ``models.shifts.shift_nll``, which ``estimate_shifts`` makes once per
+    batched value-and-gradient) and the per-trial kernel's launches, while
+    the ``with`` block runs; the scalar kernel's counts are set to 0 too."""
+
+    def __init__(self, qf):
+        self.qf = qf
+
+    def __enter__(self):
+        from gpcsd_tpu_torch.models import shifts
+
+        self.shifts, self.shift_nll = shifts, shifts.shift_nll
+        self.calls = 0
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self.shift_nll(*args, **kwargs)
+
+        shifts.shift_nll = counted
+        self.qf.launch_count = self.qf.rows_launch_count = 0
+        self.qf.launches_by_shape.clear()
+        self.qf.rows_launches_by_shape.clear()
+        return self
+
+    def __exit__(self, *exc):
+        self.shifts.shift_nll = self.shift_nll
+        self.scalar_launches = self.qf.launch_count
+        self.scalar_by_shape = dict(self.qf.launches_by_shape)
+        self.launches = self.qf.rows_launch_count
+        self.by_shape = dict(self.qf.rows_launches_by_shape)
+        return False
+
+    def check(self, phase, nx, nt, ntrials):
+        """Rows launches = batched evaluations > 0, each at (nx, nt, B) with
+        B <= ntrials, and none of the scalar kernel at (nx, nt, 1)."""
+        check(self.launches == self.calls > 0,
+              f"{phase}: {self.launches} quadform_rows launches for {self.calls} batched evaluations")
+        check(all(k[:2] == (nx, nt) and k[2] <= ntrials for k in self.by_shape),
+              f"{phase}: quadform_rows shapes {self.by_shape}")
+        check(self.scalar_by_shape.get((nx, nt, 1), 0) == 0,
+              f"{phase}: the scalar kernel ran at the shift shape {self.scalar_by_shape}")
+
+    def summary(self):
+        return {"rows_launches": self.launches, "batched_evaluations": self.calls,
+                "rows_launches_by_batch": {str(k[2]): v for k, v in sorted(self.by_shape.items())}}
+
+
 def phase_kernel(qf, dev):
     """:func:`check_kernel` at every shape of :data:`KERNEL_SHAPES`.
     Returns the abs value error by shape."""
@@ -335,13 +429,14 @@ def max_rel(a, b):
     return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
 
 
-def quadform_bound_ms(nx, nt, ntrials):
+def quadform_bound_ms(nx, nt, ntrials, per_trial=False):
     """Least milliseconds the card could take for one quadform call: the
     larger of its operations (the two products ``Qs^T Y_b`` and ``(.) Qt``)
     at the FP64 tensor-core peak and its bytes (Y, Qt, Qs, dinv read once,
-    one scalar written) at the memory rate."""
+    one scalar written, or one per trial for ``quadform_rows``) at the
+    memory rate."""
     ops = 2.0 * ntrials * nx * nt * (nt + nx)
-    nbytes = 8.0 * (ntrials * nx * nt + nt * nt + nx * nx + nx * nt + 1)
+    nbytes = 8.0 * (ntrials * nx * nt + nt * nt + nx * nx + nx * nt + (ntrials if per_trial else 1))
     t_ops, t_bytes = ops / PEAK_FP64_TENSOR_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -907,13 +1002,16 @@ def phase_timing(qf, dev, smi):
     return kt["quadform_device_ms"], kt["quadform_plain_device_ms"]
 
 
-def kernel_times(qf, shape, dev):
-    """The quadform kernel against its plain version at ``shape``: device
-    milliseconds (CUDA graph of 50 calls) and eager milliseconds, each in
-    turns plain-kernel-kernel-plain so that drift between them cancels."""
+def kernel_times(qf, shape, dev, rows=False):
+    """The quadform kernel (``rows``: the per-trial one) against its plain
+    version at ``shape``: device milliseconds (CUDA graph of 50 calls) and
+    eager milliseconds, each in turns plain-kernel-kernel-plain so that
+    drift between them cancels."""
     ins = kernel_inputs(torch.Generator().manual_seed(1), *shape, dev)
-    kernel = lambda: qf.quadform_cuda(*ins)  # noqa: E731
-    plain = lambda: qf.quadform_reference(*ins)  # noqa: E731
+    cuda_fn, plain_fn = ((qf.quadform_rows_cuda, qf.quadform_rows_reference) if rows
+                         else (qf.quadform_cuda, qf.quadform_reference))
+    kernel = lambda: cuda_fn(*ins)  # noqa: E731
+    plain = lambda: plain_fn(*ins)  # noqa: E731
     dev_runs = [graph_ms(f) for f in (plain, kernel, kernel, plain)]
     eager_runs = [cuda_ms(f, 50) for f in (plain, kernel, kernel, plain)]
     return dict(
@@ -1314,9 +1412,11 @@ def phase_torus(X, dev, smi):
 def phase_shifts(qf, dev, smi):
     """``estimate_shifts`` at fit_mean_function's default shape from one
     model fitted on the card: tau card vs CPU to 1e-6, nll to 1e-9
-    relative, every nll finite, quadform launches = the optimizer's own
-    count of evaluations.  Returns the fit's launches and the shift
-    stage's."""
+    relative, every nll finite; the per-trial kernel held against its plain
+    version and the scalar kernel at :data:`SHAPE_ROWS_SHIFT` first, then
+    its launches = the stage's batched evaluations and no scalar launch.
+    Returns the fit's launches, the shift stage's launches of the per-trial
+    kernel and that kernel's largest abs error."""
     from gpcsd_tpu_torch.models.gpcsd1d import GPCSD1D
     from gpcsd_tpu_torch.workloads import fit_mean_function as fmf
 
@@ -1332,27 +1432,25 @@ def phase_shifts(qf, dev, smi):
     cpu = GPCSD1D(resid, x.reshape(-1, 1), t.reshape(-1, 1), device="cpu")
     cpu.restore_model_params(gpu.extract_model_params())
 
-    qf.launch_count = 0
-    qf.launches_by_shape.clear()
-    (labels, n_seg, res, _, _), seconds = sync_seconds(
-        lambda: fmf._shift_stage(gpu, lfp, resid, evoked_csd, z, x, t))
-    launches = qf.launch_count
-    by_shape = dict(qf.launches_by_shape)
+    rows_err = check_rows_kernel(qf, SHAPE_ROWS_SHIFT, dev, torch.Generator().manual_seed(2))
+    with ShiftStageCount(qf) as sc:
+        (labels, n_seg, res, _, _), seconds = sync_seconds(
+            lambda: fmf._shift_stage(gpu, lfp, resid, evoked_csd, z, x, t))
     _, _, res_cpu, _, _ = fmf._shift_stage(cpu, lfp, resid, evoked_csd, z, x, t)
     tau_err = float(np.abs(res.tau - res_cpu.tau).max())
     nll_err = float(np.max(np.abs(res.nll - res_cpu.nll) / np.abs(res_cpu.nll)))
     emit("shifts", card=smi, trials=lfp.shape[2], segments=n_seg, seconds=seconds,
-         launches=launches, evaluations=int(res.n_evals.sum()),
+         scalar_launches=sc.scalar_launches, **sc.summary(), evaluations=int(res.n_evals.sum()),
          evaluations_per_trial_max=int(res.n_evals.max()), converged_frac=float(res.converged.mean()),
          tau_abs_err_vs_cpu=tau_err, nll_rel_err_vs_cpu=nll_err,
          converged_equal_cpu=bool(np.array_equal(res.converged, res_cpu.converged)))
     check(n_seg >= 1 and res.tau.shape == (lfp.shape[2], n_seg), f"shifts: {n_seg} segments")
     check(np.all(np.isfinite(res.nll)), "shifts: an nll is not finite")
-    check(launches == int(res.n_evals.sum()) > 0 and by_shape == {SHAPE_SHIFT: launches},
-          f"shifts: {launches} launches ({by_shape}) for {int(res.n_evals.sum())} evaluations")
+    sc.check("shifts", *SHAPE_ROWS_SHIFT)
+    check(sc.scalar_launches == 0, f"shifts: {sc.scalar_launches} scalar launches in the shift stage")
     check(tau_err <= 1e-6 and nll_err <= 1e-9, f"shifts: card vs CPU tau {tau_err}, nll {nll_err}")
     check(fit_launches > 0, "shifts: the fit launched no kernel")
-    return fit_launches, launches
+    return fit_launches, sc.launches, rows_err
 
 
 def phase_workloads(qf, dev, smi):
@@ -1360,24 +1458,26 @@ def phase_workloads(qf, dev, smi):
     400 samples and 60 trials on two 24-channel probes, fit_mean_function at
     its defaults; restarts cut to :data:`AUD_RESTARTS` and
     :data:`FMF_RESTARTS` (fit_mean_function's own default is 3).  Checks the
-    JAX tests' thresholds.  Returns the launches by shape."""
+    JAX tests' thresholds and that the shift stage's batched evaluations
+    each launched the per-trial kernel once.  Returns the scalar kernel's
+    launches by shape and the per-trial kernel's launches."""
     from gpcsd_tpu_torch.workloads import auditory_lfp as aud
     from gpcsd_tpu_torch.workloads import fit_mean_function as fmf
 
-    qf.launch_count = 0
-    qf.launches_by_shape.clear()
     t_aud, t_fmf = {}, {}
-    (m_aud, phases, tg), aud_s = sync_seconds(lambda: aud.run(
-        n_restarts=AUD_RESTARTS, nboot=10, seed=0, ntime=400, ntrials=60, device=dev, timings=t_aud))
-    (m_fmf, res, _), fmf_s = sync_seconds(lambda: fmf.run(
-        n_restarts=FMF_RESTARTS, seed=0, device=dev, timings=t_fmf))
-    by_shape = dict(qf.launches_by_shape)
+    with ShiftStageCount(qf) as sc:
+        (m_aud, phases, tg), aud_s = sync_seconds(lambda: aud.run(
+            n_restarts=AUD_RESTARTS, nboot=10, seed=0, ntime=400, ntrials=60, device=dev,
+            timings=t_aud))
+        (m_fmf, res, _), fmf_s = sync_seconds(lambda: fmf.run(
+            n_restarts=FMF_RESTARTS, seed=0, device=dev, timings=t_fmf))
+    by_shape = sc.scalar_by_shape
     emit("workloads", card=smi,
          auditory_lfp={"seconds": aud_s, "stages": t_aud, "restarts": AUD_RESTARTS,
                        "restarts_cut_from": 10, "nboot": 10, "metrics": m_aud},
          fit_mean_function={"seconds": fmf_s, "stages": t_fmf, "restarts": FMF_RESTARTS,
                             "metrics": m_fmf},
-         launches_by_shape={str(list(k)): v for k, v in by_shape.items()})
+         launches_by_shape={str(list(k)): v for k, v in by_shape.items()}, shift_stage=sc.summary())
     check(phases["lateral"]["csd"].shape == (24, 60), "workloads: auditory phases shape")
     check(bool(torch.isfinite(tg.pvals).all()), "workloads: torus-graph p-values not finite")
     check(0 <= m_aud["tg_edges_bonf_001"] <= 1128, "workloads: auditory edge count")
@@ -1385,10 +1485,10 @@ def phase_workloads(qf, dev, smi):
     check(m_fmf["best_match_shift_corr_max"] > 0.25, "workloads: shift recovery")
     check(m_fmf["gpcsd_evoked_corr"] > 0.7, "workloads: GPCSD evoked correlation")
     check(np.isfinite(res.tau).all(), "workloads: shifts not finite")
-    check(by_shape.get(SHAPE_AUD, 0) > 0 and by_shape.get(SHAPE_FMF, 0) > 0
-          and by_shape.get(SHAPE_SHIFT, 0) == int(res.n_evals.sum()) > 0,
+    check(by_shape.get(SHAPE_AUD, 0) > 0 and by_shape.get(SHAPE_FMF, 0) > 0,
           f"workloads: launches by shape {by_shape}")
-    return by_shape
+    sc.check("workloads", *SHAPE_ROWS_SHIFT)
+    return by_shape, sc.launches
 
 
 # -------------------------------------------- the loaders and the other twins
@@ -1407,10 +1507,12 @@ def shape_key(shape):
 
 
 def run_counted(qf, fn):
-    """``fn()`` on a synchronised device with the quadform counts set to 0
-    just before: (result, seconds, launches, launches by shape)."""
-    qf.launch_count = 0
+    """``fn()`` on a synchronised device with the quadform counts (both
+    kernels') set to 0 just before: (result, seconds, launches, launches by
+    shape) of the scalar kernel."""
+    qf.launch_count = qf.rows_launch_count = 0
     qf.launches_by_shape.clear()
+    qf.rows_launches_by_shape.clear()
     out, seconds = sync_seconds(fn)
     return out, seconds, qf.launch_count, dict(qf.launches_by_shape)
 
@@ -1449,8 +1551,11 @@ def phase_io(qf, dev, smi):
     ``np.loadtxt`` bit for bit; ``auditory_lfp.run(data_dir=)``, then
     ``fit_mean_function.run_real`` restoring the pickles that run wrote, with
     the JAX tests' thresholds; ``neuropixels.run(data_dir=)`` on two pickles
-    in ``extract_probe``'s schema at ngl 10 x 30.  Returns the launches by
-    shape of the three runs."""
+    in ``extract_probe``'s schema at ngl 10 x 30.  ``run_real`` restores its
+    models and launches no scalar kernel; its shift stage launches the
+    per-trial kernel once per batched evaluation, at (24, 151, B).  Returns
+    the scalar kernel's launches by shape of the three runs and the
+    per-trial kernel's launches."""
     from gpcsd_tpu_torch import native
     from gpcsd_tpu_torch.io import loaders
     from gpcsd_tpu_torch.workloads import auditory_lfp as aud
@@ -1477,8 +1582,9 @@ def phase_io(qf, dev, smi):
         (m_aud, phases, tg), aud_s, aud_n, aud_shapes = run_counted(qf, lambda: aud.run(
             data_dir=data, n_restarts=IO_AUD_RESTARTS, nboot=10, seed=0, results_dir=stage1,
             device=dev, timings=t_aud))
-        (m_real, res_real), real_s, real_n, real_shapes = run_counted(qf, lambda: fmf.run_real(
-            data, stage1_dir=stage1, seed=0, device=dev, timings=t_real))
+        with ShiftStageCount(qf) as sc:
+            (m_real, res_real), real_s, real_n, real_shapes = run_counted(qf, lambda: fmf.run_real(
+                data, stage1_dir=stage1, seed=0, device=dev, timings=t_real))
         write_neuropixels_pickles(os.path.join(tmp, "npx"), npx, dev)
         m_npx, npx_s, npx_n, npx_shapes = run_counted(qf, lambda: npx.run(
             data_dir=os.path.join(tmp, "npx"), n_restarts=IO_NPX_RESTARTS, ngl1=IO_NPX_NGL[0],
@@ -1496,6 +1602,7 @@ def phase_io(qf, dev, smi):
                        "metrics": m_aud},
          fit_mean_function_real={"seconds": real_s, "stages": t_real, "launches": real_n,
                                  "launches_by_shape": {shape_key(k): v for k, v in real_shapes.items()},
+                                 "shift_stage": {"seconds": t_real.get("shifts"), **sc.summary()},
                                  "metrics": m_real},
          neuropixels={"seconds": npx_s, "stages": t_npx, "restarts": IO_NPX_RESTARTS,
                       "restarts_cut_from": 20, "ngl": list(IO_NPX_NGL), "ngl_cut_from": [30, 120],
@@ -1516,10 +1623,10 @@ def phase_io(qf, dev, smi):
         check(0.0 <= m_real[f"{probe}_converged_frac"] <= 1.0, f"io: {probe} converged fraction")
     check(m_npx["source"] == "nwb" and m_npx["probeC_csd_pred_shape"][:2] == [4, NPX_NT],
           f"io: neuropixels real-data run {m_npx.get('probeC_csd_pred_shape')}")
-    check(aud_shapes.get(SHAPE_AUD, 0) > 0 and real_shapes.get(SHAPE_REAL_SHIFT, 0) > 0
-          and real_n == real_shapes[SHAPE_REAL_SHIFT] and npx_n > 0,
+    check(aud_shapes.get(SHAPE_AUD, 0) > 0 and real_n == 0 and npx_n > 0,
           f"io: launches {aud_shapes} {real_shapes} {npx_shapes}")
-    return merge_counts(aud_shapes, real_shapes, npx_shapes)
+    sc.check("io", *SHAPE_ROWS_REAL)
+    return merge_counts(aud_shapes, real_shapes, npx_shapes), sc.launches
 
 
 def merge_counts(*dicts):
@@ -2277,11 +2384,12 @@ def main():
     # ---- the analysis stages and the two workload twins
     X = phase_signal(dev, smi)
     phase_torus(X, dev, smi)
-    fit_fmf, shift = phase_shifts(qf, dev, smi)
-    wl = phase_workloads(qf, dev, smi)
+    rows_shifts, rows_err = {}, {}
+    fit_fmf, rows_shifts["shifts"], rows_err[SHAPE_ROWS_SHIFT] = phase_shifts(qf, dev, smi)
+    wl, rows_shifts["workloads"] = phase_workloads(qf, dev, smi)
 
     # ---- the real-data modes on written files, and the other five twins
-    wl_io = phase_io(qf, dev, smi)
+    wl_io, rows_real = phase_io(qf, dev, smi)
     wl_sim = phase_workloads_sim(qf, dev, smi)
     wl_2d = phase_workloads_2d(qf, dev, smi)
 
@@ -2299,11 +2407,21 @@ def main():
     emit("bench_profile", card=smi, bench=device_busy_ms_per_eval(bench_model),
          bench_2d=device_busy_ms_per_eval(gpu2d))
     analysis = {}
-    for shape in (SHAPE_AUD, SHAPE_FMF, SHAPE_SHIFT):
+    for shape in (SHAPE_AUD, SHAPE_FMF):
         kt = kernel_times(qf, shape, dev)
         analysis[shape] = (kt["quadform_device_ms"], kt["quadform_plain_device_ms"],
                            *quadform_bound_ms(*shape))
         emit("timing_analysis", **kt)
+    # the per-trial kernel at the shift stages' full batches
+    rows_err[SHAPE_ROWS_REAL] = check_rows_kernel(qf, SHAPE_ROWS_REAL, dev,
+                                                  torch.Generator().manual_seed(3))
+    rows_times = {}
+    for shape in (SHAPE_ROWS_SHIFT, SHAPE_ROWS_REAL):
+        kt = kernel_times(qf, shape, dev, rows=True)
+        rows_times[shape] = (kt["quadform_device_ms"], kt["quadform_plain_device_ms"],
+                             *quadform_bound_ms(*shape, per_trial=True))
+        emit("timing_rows", card=smi, bound_ms=rows_times[shape][2],
+             bound_by=rows_times[shape][3], **kt)
 
     by_phase_new = {"io": wl_io, "workloads_sim": wl_sim, "workloads_2d": wl_2d}
     new_rows = [(f"Neuropixels twin's fit, {shape[2]} trials kept", shape)
@@ -2311,8 +2429,7 @@ def main():
     new_rows += [("sim_from_gp_1d twin's fit", SHAPE_SIM1D),
                  ("mismatch study's fits and SMC", SHAPE_MISMATCH),
                  ("sim_from_gp_2d twin's fit", SHAPE_SIM2D),
-                 ("simple template's fits", SHAPE_TEMPLATE),
-                 ("real-data evoked twin's shift stage", SHAPE_REAL_SHIFT)]
+                 ("simple template's fits", SHAPE_TEMPLATE)]
     for label, shape in new_rows:
         check(sum(d.get(shape, 0) for d in by_phase_new.values()) > 0,
               f"the {label} {shape} launched no kernel")
@@ -2356,8 +2473,17 @@ def main():
           for label, shape, by_phase in (
               ("auditory twin's fit", SHAPE_AUD, {"workloads": wl.get(SHAPE_AUD, 0),
                                                   "io": wl_io.get(SHAPE_AUD, 0)}),
-              ("evoked twin's fit", SHAPE_FMF, {"shifts": fit_fmf, "workloads": wl.get(SHAPE_FMF, 0)}),
-              ("shift stage", SHAPE_SHIFT, {"shifts": shift, "workloads": wl.get(SHAPE_SHIFT, 0)}))),
+              ("evoked twin's fit", SHAPE_FMF, {"shifts": fit_fmf, "workloads": wl.get(SHAPE_FMF, 0)}))),
+        # the per-trial output of the same kernel: one launch per batched
+        # evaluation of the shift stage, at (nx, nt, B) for the B trials
+        # evaluated; the shape given is the first evaluation's (all trials)
+        *({"name": f"quadform_rows at the {label}", "shape": list(shape), **common,
+           "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
+           "max_abs_err": rows_err[shape], "ms": rows_times[shape][0], "plain_ms": rows_times[shape][1],
+           "bound_ms": rows_times[shape][2], "bound_by": rows_times[shape][3]}
+          for label, shape, by_phase in (
+              ("shift stage", SHAPE_ROWS_SHIFT, rows_shifts),
+              ("real-data evoked twin's shift stage", SHAPE_ROWS_REAL, {"io": rows_real}))),
         *({"name": f"quadform at the {label}", "shape": list(shape), **common,
            "launches": sum(d.get(shape, 0) for d in by_phase_new.values()),
            "launches_by_phase": {k: d.get(shape, 0) for k, d in by_phase_new.items() if d.get(shape, 0)},

@@ -1,6 +1,7 @@
 // Fused Kronecker-whitened quadratic form, float64, for sm_90a.
 //
-//     out = sum_b sum_ij (Qs^T Y_b Qt)_ij^2 * dinv_ij
+//     out = sum_b sum_ij (Qs^T Y_b Qt)_ij^2 * dinv_ij            (quadform_f64)
+//     out[b] = sum_ij (Qs^T Y_b Qt)_ij^2 * dinv_ij               (quadform_rows_f64)
 //
 // Replaces the Pallas TPU kernel gpcsd_tpu/ops/pallas/quadform.py
 // (_quadform_kernel, pallas_call at :66): the quadratic term of the
@@ -54,6 +55,17 @@
 //    dinv[m mod nx, j], reduces with warp shuffles and writes one partial
 //    per block.  A second single-block kernel sums the partials in a fixed
 //    order, so two calls give the same bits; no atomics.
+// 6. The per-trial output (quadform_rows_f64, for callers such as the shift
+//    stage whose B rows share Qs, Qt and dinv but need one value each) runs
+//    the same W pre-pass and GEMM with another epilogue, chosen by the
+//    GEMM's template parameter so that the scalar instantiation is
+//    unchanged: each accumulator row m is reduced along j, first over the
+//    4 lanes of the m16n8k8 fragment that share it (shuffles), then over
+//    the block's WARPS_N warps (shared memory), and written as one partial
+//    per (row m, column tile).  Rows, not trials, are the unit, so a row
+//    tile that straddles trials needs no mask.  The reduction kernel then
+//    runs one block per trial over that trial's nx * tiles_n partials,
+//    which are contiguous, in the scalar path's fixed order.
 // Tile sizes (the constants below).  BM = BN = 64 with 2 x 2 warps of
 // 32 x 32, and BK = 16 in 4 stages of 16 KB: a 32 x 32 warp tile reads 0.5 B
 // of shared memory per DMMA FMA, half the SM's 128 B/clk at peak; the GEMM
@@ -108,8 +120,10 @@ static_assert(WM % 16 == 0 && WN % 8 == 0, "warp tiles are made of m16n8 fragmen
 static_assert(BK == 16 && MMA_K == 8, "the k order below is for two k8 steps a chunk");
 static_assert(BN % QBOX == 0 && STAGE_BYTES % 1024 == 0, "TMA boxes and 1 KB swizzle atoms");
 static_assert(STAGES >= 2, "a ring needs two stages");
-// MIN_BLOCKS blocks, each with 1 KB reserved, in the SM's 228 KB
-static_assert(MIN_BLOCKS * (SMEM_BYTES + 1024 + (WARPS + STAGES) * sizeof(double)) <= 233472,
+// MIN_BLOCKS blocks, each with 1 KB reserved, in the SM's 228 KB (the
+// per-row epilogue adds WARPS_N x BM doubles)
+static_assert(MIN_BLOCKS * (SMEM_BYTES + 1024 + (WARPS + STAGES + WARPS_N * BM) * sizeof(double))
+                  <= 233472,
               "MIN_BLOCKS blocks must fit in an SM's shared memory");
 
 inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
@@ -211,8 +225,12 @@ __device__ __forceinline__ int sw128(int r, int c) {
 }
 
 // One BM x BN tile of alpha = W Qt on the FP64 tensor cores, then the
-// partial sum of alpha^2 * dinv over the tile.  TMA fills each stage: W's
-// (BM x BK) box and BN/QBOX (BK x QBOX) boxes of Qt, zero past every edge.
+// partial sum of alpha^2 * dinv over the tile (PER_ROW false: one partial
+// per block) or over each row of the tile (PER_ROW true: one partial per
+// (row m, column tile), at partials[m * tiles_n + column tile]).  TMA fills
+// each stage: W's (BM x BK) box and BN/QBOX (BK x QBOX) boxes of Qt, zero
+// past every edge.
+template <bool PER_ROW>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 quadform_gemm_kernel(const __grid_constant__ CUtensorMap map_w,
                      const __grid_constant__ CUtensorMap map_qt,
@@ -308,6 +326,45 @@ quadform_gemm_kernel(const __grid_constant__ CUtensorMap map_w,
         }
     }
 
+    if constexpr (PER_ROW) {
+        // alpha^2 * dinv along j for each of the tile's rows: over the 8
+        // columns a thread holds, over the 4 lanes (t) that hold the rest of
+        // the warp's row, then over the WARPS_N warps that share the row
+        __shared__ double row_sums[WARPS_N][BM];
+#pragma unroll
+        for (int a = 0; a < MT; ++a) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int r = wm + 16 * a + g + 8 * h;
+                const int m = m0 + r;
+                double part = 0.0;
+                if (m < M) {
+                    const double* drow = dinv + (size_t)(m % nx) * nt;
+#pragma unroll
+                    for (int b = 0; b < NT; ++b) {
+#pragma unroll
+                        for (int e = 0; e < 2; ++e) {
+                            const int j = n0 + wn + 8 * b + 2 * t + e;
+                            const double v = acc[a][b][2 * h + e];
+                            if (j < nt) part = fma(v * v, drow[j], part);
+                        }
+                    }
+                }
+                part += __shfl_xor_sync(0xffffffffu, part, 1);
+                part += __shfl_xor_sync(0xffffffffu, part, 2);
+                if (t == 0) row_sums[warp % WARPS_N][r] = part;
+            }
+        }
+        __syncthreads();
+        if (tid < BM && m0 + tid < M) {
+            double s = 0.0;
+#pragma unroll
+            for (int w = 0; w < WARPS_N; ++w) s += row_sums[w][tid];
+            partials[(size_t)(m0 + tid) * tiles_n + blockIdx.x % tiles_n] = s;
+        }
+        return;
+    }
+
     double part = 0.0;
 #pragma unroll
     for (int a = 0; a < MT; ++a) {
@@ -339,12 +396,14 @@ quadform_gemm_kernel(const __grid_constant__ CUtensorMap map_w,
     }
 }
 
-// One block: each thread sums a fixed strided subset in order, then a tree
-// reduction in shared memory.  Same order every run.
+// Block c sums partials[c*n .. c*n + n) into out[c]: each thread a fixed
+// strided subset in order, then a tree reduction in shared memory.  Same
+// order every run.
 __global__ void __launch_bounds__(REDUCE_THREADS)
 sum_partials_kernel(const double* __restrict__ partials, int n,
                     double* __restrict__ out) {
     __shared__ double s[REDUCE_THREADS];
+    partials += (size_t)blockIdx.x * n;
     double acc = 0.0;
     for (int e = threadIdx.x; e < n; e += REDUCE_THREADS) acc += partials[e];
     s[threadIdx.x] = acc;
@@ -353,11 +412,11 @@ sum_partials_kernel(const double* __restrict__ partials, int n,
         if (threadIdx.x < stride) s[threadIdx.x] += s[threadIdx.x + stride];
         __syncthreads();
     }
-    if (threadIdx.x == 0) *out = s[0];
+    if (threadIdx.x == 0) out[blockIdx.x] = s[0];
 }
 
 struct Plan {
-    long long kpad, gemm_blocks, w_blocks, qt_offset, work_elems;
+    long long kpad, tiles_n, gemm_blocks, n_partials, w_blocks, qt_offset, work_elems;
 };
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -380,62 +439,30 @@ bool encode_2d(CUtensorMap* map, const double* base, long long rows, long long c
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-bool make_plan(int nx, int nt, int ntrials, Plan* p) {
+// per_row: one partial per (row, column tile) instead of one per block
+bool make_plan(int nx, int nt, int ntrials, bool per_row, Plan* p) {
     if (nx <= 0 || nt <= 0 || ntrials <= 0) return false;
     const long long M = (long long)ntrials * nx;
     p->kpad = cdiv(nt, BK) * BK;
-    p->gemm_blocks = cdiv(M, BM) * cdiv(nt, BN);
+    p->tiles_n = cdiv(nt, BN);
+    p->gemm_blocks = cdiv(M, BM) * p->tiles_n;
+    p->n_partials = per_row ? M * p->tiles_n : p->gemm_blocks;
     p->w_blocks = (long long)ntrials * cdiv(nx, W_ROWS) * cdiv(p->kpad, W_THREADS);
     // W, the partials, then room for a copy of Qt with an even row stride
-    p->qt_offset = cdiv(M * p->kpad + p->gemm_blocks, 2) * 2;
+    p->qt_offset = cdiv(M * p->kpad + p->n_partials, 2) * 2;
     p->work_elems = p->qt_offset + (long long)nt * (nt + 1);
-    return M <= INT_MAX && p->gemm_blocks <= INT_MAX && p->w_blocks <= INT_MAX;
+    return M <= INT_MAX && p->gemm_blocks <= INT_MAX && p->w_blocks <= INT_MAX &&
+           (long long)nx * p->tiles_n <= INT_MAX;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Prepares the kernels on the current device: lets the GEMM use SMEM_BYTES
-// of dynamic shared memory, and finds libcuda's cuTensorMapEncodeTiled.
-// Call once per device before quadform_f64; returns a cudaError_t (0 on
-// success).
-int quadform_f64_init(void) {
-    cudaError_t err = cudaFuncSetAttribute(
-        quadform_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(quadform_gemm_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return (int)err;
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
-                                           &found);
-    if (err != cudaSuccess) return (int)err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorSymbolNotFound;
-    encode_tiled = (EncodeTiled)fn;
-    return 0;
-}
-
-// Float64 elements of the scratch buffer quadform_f64 needs (the W array,
-// one partial per GEMM block, room for Qt at an even row stride); -1 for a
-// shape it does not take.
-long long quadform_f64_workspace(int nx, int nt, int ntrials) {
+// The W pre-pass, the GEMM with the PER_ROW epilogue and the reduction
+// (one block, or one per trial), as quadform_f64 documents them.
+template <bool PER_ROW>
+int launch(const double* qs, const double* qt, const double* dinv, const double* y,
+           double* work, long long work_elems, double* out, int nx, int nt, int ntrials,
+           void* stream) {
     Plan p;
-    return make_plan(nx, nt, ntrials, &p) ? p.work_elems : -1;
-}
-
-// Launches the three kernels (after a copy of Qt when nt is odd or Qt is
-// not 16-byte aligned) on
-// `stream`; returns a cudaError_t (0 on success).  qs (nx, nx), qt (nt, nt), dinv (nx, nt), y (ntrials, nx, nt):
-// row-major, contiguous float64 on the current device; work holds
-// work_elems >= quadform_f64_workspace(nx, nt, ntrials) doubles, 16-byte
-// aligned; out one double.
-int quadform_f64(const double* qs, const double* qt, const double* dinv, const double* y,
-                 double* work, long long work_elems, double* out, int nx, int nt,
-                 int ntrials, void* stream) {
-    Plan p;
-    if (!make_plan(nx, nt, ntrials, &p) || work_elems < p.work_elems ||
+    if (!make_plan(nx, nt, ntrials, PER_ROW, &p) || work_elems < p.work_elems ||
         (uintptr_t)work % 16 != 0)
         return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
@@ -464,13 +491,82 @@ int quadform_f64(const double* qs, const double* qt, const double* dinv, const d
     if (encode_tiled == nullptr || !encode_2d(&map_w, w, M, kpad, kpad, BM, BK) ||
         !encode_2d(&map_qt, qt, nt, nt, ldq, BK, QBOX))
         return (int)cudaErrorInvalidValue;
-    quadform_gemm_kernel<<<(int)p.gemm_blocks, THREADS, SMEM_BYTES, st>>>(
-        map_w, map_qt, dinv, partials, M, nx, nt, kpad, (int)cdiv(nt, BN));
+    quadform_gemm_kernel<PER_ROW><<<(int)p.gemm_blocks, THREADS, SMEM_BYTES, st>>>(
+        map_w, map_qt, dinv, partials, M, nx, nt, kpad, (int)p.tiles_n);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
 
-    sum_partials_kernel<<<1, REDUCE_THREADS, 0, st>>>(partials, (int)p.gemm_blocks, out);
+    if (PER_ROW)
+        sum_partials_kernel<<<ntrials, REDUCE_THREADS, 0, st>>>(
+            partials, (int)(nx * p.tiles_n), out);
+    else
+        sum_partials_kernel<<<1, REDUCE_THREADS, 0, st>>>(partials, (int)p.gemm_blocks, out);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Prepares the kernels on the current device: lets both GEMM epilogues use
+// SMEM_BYTES of dynamic shared memory, and finds libcuda's
+// cuTensorMapEncodeTiled.  Call once per device before quadform_f64 or
+// quadform_rows_f64; returns a cudaError_t (0 on success).
+int quadform_f64_init(void) {
+    const void* gemms[] = {(const void*)quadform_gemm_kernel<false>,
+                           (const void*)quadform_gemm_kernel<true>};
+    for (const void* fn : gemms) {
+        cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)SMEM_BYTES);
+        if (err != cudaSuccess) return (int)err;
+        err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   (int)cudaSharedmemCarveoutMaxShared);
+        if (err != cudaSuccess) return (int)err;
+    }
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                       cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorSymbolNotFound;
+    encode_tiled = (EncodeTiled)fn;
+    return 0;
+}
+
+// Float64 elements of the scratch buffer quadform_f64 needs (the W array,
+// one partial per GEMM block, room for Qt at an even row stride); -1 for a
+// shape it does not take.
+long long quadform_f64_workspace(int nx, int nt, int ntrials) {
+    Plan p;
+    return make_plan(nx, nt, ntrials, false, &p) ? p.work_elems : -1;
+}
+
+// The same for quadform_rows_f64, whose partials are one per (row, column
+// tile): ntrials * nx * ceil(nt / 64) of them.
+long long quadform_rows_f64_workspace(int nx, int nt, int ntrials) {
+    Plan p;
+    return make_plan(nx, nt, ntrials, true, &p) ? p.work_elems : -1;
+}
+
+// Launches the three kernels (after a copy of Qt when nt is odd or Qt is
+// not 16-byte aligned) on
+// `stream`; returns a cudaError_t (0 on success).  qs (nx, nx), qt (nt, nt), dinv (nx, nt), y (ntrials, nx, nt):
+// row-major, contiguous float64 on the current device; work holds
+// work_elems >= quadform_f64_workspace(nx, nt, ntrials) doubles, 16-byte
+// aligned; out one double.
+int quadform_f64(const double* qs, const double* qt, const double* dinv, const double* y,
+                 double* work, long long work_elems, double* out, int nx, int nt,
+                 int ntrials, void* stream) {
+    return launch<false>(qs, qt, dinv, y, work, work_elems, out, nx, nt, ntrials, stream);
+}
+
+// As quadform_f64, with one output per trial: out holds ntrials doubles,
+// out[b] = sum_ij (Qs^T Y_b Qt)_ij^2 * dinv_ij, and work holds
+// quadform_rows_f64_workspace(nx, nt, ntrials) doubles.
+int quadform_rows_f64(const double* qs, const double* qt, const double* dinv, const double* y,
+                      double* work, long long work_elems, double* out, int nx, int nt,
+                      int ntrials, void* stream) {
+    return launch<true>(qs, qt, dinv, y, work, work_elems, out, nx, nt, ntrials, stream);
 }
 
 const char* quadform_error_string(int err) {

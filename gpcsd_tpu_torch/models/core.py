@@ -12,7 +12,9 @@ Where the JAX package maps these functions over chains or stencil points
 with ``jax.vmap``, here the batch is written out: ``log_prob``,
 ``neg_log_joint`` and ``log_prior_u`` take ``u`` of shape ``(dim,)`` or
 ``(C, dim)`` and return a scalar or ``(C,)``, with one batched ``eigh``
-per factor and one quadform call per row.
+per factor and one quadform call per row: each row has its own factors,
+so the per-trial kernel (``quadform_rows``, one ``(qs, qt, dinv)`` for all
+its trials) does not apply here.
 :func:`value_and_grad_rows` differentiates all rows in one backward.
 """
 

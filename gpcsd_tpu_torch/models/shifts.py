@@ -8,8 +8,13 @@ factors) with a Gaussian prior on tau, optimized by L-BFGS.  The reference
 fans this out over CPU processes with joblib and the JAX package vmaps its
 optimizer over trials; here the trials are the rows of one batched
 :func:`gpcsd_tpu_torch.infer.lbfgs.lbfgs_minimize` run, each row carrying
-its own trial's LFP as ``row_data``.  The residual's quadratic term is the
-quadform kernel's function, one launch per row and evaluation.
+its own trial's LFP as ``row_data``.  The rows share the noise model's
+factors, so the residuals' quadratic terms of one batched evaluation are
+one :func:`~gpcsd_tpu_torch.ops.cuda.quadform.quadform_rows` call: one
+kernel launch for all the rows it evaluates, with an output per row.  The
+segments (tens on real data) are shifted together by
+:func:`shift_components`, so an evaluation's host work does not grow with
+their number.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 
 from .. import config
 from ..infer.lbfgs import lbfgs_minimize
-from ..ops.cuda.quadform import quadform
+from ..ops.cuda.quadform import quadform_rows
 from ..ops.kronlik import KronFactors
 
 #: ``jnp.interp``'s threshold below which a knot interval counts as empty
@@ -50,19 +55,34 @@ def shift_component(mu, t, tau):
     :param tau: scalar, or (B,) for B shifted copies
     :return: (nx, nt), or (B, nx, nt)
     """
+    return shift_components(mu[None], t, tau[..., None])[..., 0, :, :]
+
+
+def shift_components(mu_components, t, tau):
+    """:func:`shift_component` of each of S components by its own shift, in
+    one pass: the same arithmetic, in a number of tensor operations that
+    does not grow with S (the shift stage's segments number tens).
+
+    :param mu_components: (S, nx, nt)
+    :param tau: (S,), or (B, S) for B shifted copies
+    :return: (S, nx, nt), or (B, S, nx, nt)
+    """
     t = t.reshape(-1)
     n = t.shape[0]
-    x = t + tau[..., None]  # (..., nt)
+    x = t + tau[..., None]  # (..., S, nt)
     i = torch.clamp(torch.searchsorted(t, x.detach(), right=True), 1, n - 1)
-    lo_f, hi_f = mu[:, i - 1], mu[:, i]  # (nx, ..., nt)
     dx = t[i] - t[i - 1]
-    delta = x - t[i - 1]
     dx0 = torch.abs(dx) <= _DX_EPS
-    f = torch.where(dx0, lo_f, lo_f + (delta / torch.where(dx0, 1.0, dx)) * (hi_f - lo_f))
-    edge = (mu.shape[0],) + (1,) * x.ndim
-    f = torch.where(x < t[0], mu[:, 0].reshape(edge), f)
-    f = torch.where(x > t[-1], mu[:, -1].reshape(edge), f)
-    return torch.movedim(f, 0, -2)
+    w = torch.where(dx0, 0.0, (x - t[i - 1]) / torch.where(dx0, 1.0, dx))
+    # outside [t[0], t[-1]] both knots are the edge's: the value is held
+    # exactly and the gradient is 0
+    lo = torch.where(x > t[-1], n - 1, i - 1)
+    hi = torch.where(x < t[0], 0, i)
+    shape = (*i.shape[:-1], mu_components.shape[-2], n)  # (..., S, nx, nt)
+    mu = mu_components.expand(shape)
+    lo_f = torch.gather(mu, -1, lo.unsqueeze(-2).expand(shape))
+    hi_f = torch.gather(mu, -1, hi.unsqueeze(-2).expand(shape))
+    return lo_f + w.unsqueeze(-2) * (hi_f - lo_f)
 
 
 def shift_nll(tau, lfp_trial, mu_background, mu_components, t, factors: KronFactors,
@@ -72,20 +92,17 @@ def shift_nll(tau, lfp_trial, mu_background, mu_components, t, factors: KronFact
 
     :param tau: (n_seg,), or (B, n_seg) for B trials at once
     :param lfp_trial: (nx, nt), or (B, nx, nt)
-    :return: scalar, or (B,); the quadratic term is one :func:`quadform`
-        call (one kernel launch on the card) per trial
+    :return: scalar, or (B,); the B quadratic terms are one
+        :func:`quadform_rows` call (one kernel launch on the card)
     """
     single = tau.ndim == 1
     if single:
         tau, lfp_trial = tau[None], lfp_trial[None]
-    mu_new = mu_background
-    for i in range(mu_components.shape[0]):
-        mu_new = mu_new + shift_component(mu_components[i], t, tau[:, i])
+    mu_new = mu_background + torch.sum(shift_components(mu_components, t, tau), dim=-3)
     resid = (lfp_trial - mu_new).contiguous()
     qs, qt = factors.qs.contiguous(), factors.qt.contiguous()
     dinv = (1.0 / factors.d).contiguous()
-    quad = 0.5 * torch.stack([quadform(qs, qt, dinv, resid[b : b + 1])
-                              for b in range(resid.shape[0])])
+    quad = 0.5 * quadform_rows(qs, qt, dinv, resid)
     prior = 0.5 * torch.sum(torch.square((tau - prior_mu) / prior_sd), dim=-1)
     out = quad + prior
     return out[0] if single else out

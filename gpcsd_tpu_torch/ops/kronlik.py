@@ -176,7 +176,8 @@ def quad_term(factors: KronFactors, Y):
     through :func:`quadform`: the CUDA kernel on the card, its plain
     version on the CPU.  Batched factors ``(C, ...)`` give ``(C,)`` values
     of the same trials, with one :func:`quadform` call (one kernel launch)
-    per row: the kernel takes one ``(qs, qt, dinv)``."""
+    per row: the kernel takes one ``(qs, qt, dinv)``, and here each row has
+    its own (``quadform_rows`` batches trials that share them)."""
     nx, nt = Y.shape[-2:]
     Yb = Y.reshape(-1, nx, nt).contiguous()
     dinv = 1.0 / factors.d

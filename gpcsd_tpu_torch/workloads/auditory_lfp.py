@@ -20,7 +20,10 @@ Parity target: the reference ``auditory_lfp/fit_gpcsd_baseline.py`` +
 5. torus-graph phase-differences fit on the stacked two-probe phases (48
    channels) with a trial bootstrap of the partial PLV.
 
-Stages 3-5 keep their tensors on the device.  The figures are not ported.
+Stages 3-5 keep their tensors on the device.  With ``results_dir`` set,
+the JAX workload's per-probe figure is drawn
+(:func:`gpcsd_tpu_torch.workloads.figures.auditory_lfp_figure`) where
+matplotlib imports.
 
 Run: ``python -m gpcsd_tpu_torch.workloads.auditory_lfp [--data-dir PATH] [--quick] [--device cpu]``
 """
@@ -46,6 +49,7 @@ from ..models.gpcsd1d import GPCSD1D
 from ..models.priors import HalfNormal, InvGamma
 from ..models.torus_graph import bootstrap_partial_plv, torus_graph_fit
 from ..ops.forward import fwd_model_1d
+from . import figures
 from .common import report, stage
 
 FS = 1000.0  # Hz
@@ -145,11 +149,14 @@ def fit_probe(lfp_baseline, t, n_restarts=10, seed=0, nuts=False, cache=None,
     return model
 
 
-def probe_phases(model, lfp, time, timings=None):
+def probe_phases(model, lfp, time, timings=None, fig_data=None):
     """Posterior CSD and LFP on the trial window, then their 8-12 Hz phases
     at the window's midpoint (the reference's filtfilt + hilbert at a fixed
     time index, ``fit_gpcsd_baseline.py:303-308``).
 
+    :param fig_data: None, or a dict that receives the probe's figure
+        arrays on the host (``t``, ``lfp_evoked``, ``csd_evoked``,
+        ``csd_components``, ``plv``), as the JAX workload collects them
     :return: (csd phases (nx, ntrials), lfp phases, CSD PLV (nx, nx)),
         tensors on the model's device
     """
@@ -171,6 +178,13 @@ def probe_phases(model, lfp, time, timings=None):
         csd_ph = band_phases(pred["csd"][0])
         lfp_ph = band_phases(pred["lfp"][0])
         plv = tsig.plv_matrix(csd_ph, device=dev)
+    if fig_data is not None:
+        total, comps = pred["csd"]
+        fig_data.update(
+            t=t_trial.reshape(-1), lfp_evoked=lfp[:, trial_idx, :].mean(axis=2),
+            csd_evoked=total.mean(dim=0).cpu().numpy(),
+            csd_components=[c.mean(dim=0).cpu().numpy() for c in comps],
+            plv=plv.cpu().numpy())
     return csd_ph, lfp_ph, plv
 
 
@@ -212,6 +226,7 @@ def run(data_dir=None, n_restarts=10, nuts=False, nboot=10, seed=0, results_dir=
             probes = surrogate(seed, ntime, ntrials, device=dev)
         source = "surrogate"
     phases = {}
+    fig_data = {}
     metrics = {"source": source}
     for pname, (lfp, time) in probes.items():
         baseline_idx = time < 0
@@ -223,7 +238,8 @@ def run(data_dir=None, n_restarts=10, nuts=False, nboot=10, seed=0, results_dir=
             )
         metrics[f"{pname}_R"] = float(model.R["value"])
         metrics[f"{pname}_spatial_ell"] = float(model.spatial_cov.params["ell"]["value"])
-        csd_ph, lfp_ph, plv = probe_phases(model, lfp, time, timings)
+        csd_ph, lfp_ph, plv = probe_phases(
+            model, lfp, time, timings, fig_data=fig_data.setdefault(pname, {}) if results_dir else None)
         phases[pname] = {"csd": csd_ph, "lfp": lfp_ph}
         off = ~torch.eye(NX, dtype=torch.bool, device=dev)
         metrics[f"{pname}_mean_offdiag_plv"] = float(plv[off].mean())
@@ -233,6 +249,8 @@ def run(data_dir=None, n_restarts=10, nuts=False, nboot=10, seed=0, results_dir=
     tg, tg_metrics = torus_stage(X, nboot, seed, device=dev, timings=timings)
     metrics.update(tg_metrics)
     report("auditory_lfp", metrics, results_dir)
+    if results_dir:
+        figures.draw(figures.auditory_lfp_figure, "auditory_lfp_<probe>.png", fig_data, results_dir)
     return metrics, phases, tg
 
 

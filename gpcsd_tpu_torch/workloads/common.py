@@ -1,6 +1,6 @@
 """Shared helpers for the workload twins, counterpart of ``workloads/common.py``
-(``report``, ``mse``, ``r2``, ``paired_t``), and the stage clock the twins
-fill when asked."""
+(``report``, ``mse``, ``r2``, ``paired_t``, ``maybe_savefig``), and the
+stage clock the twins fill when asked."""
 
 from __future__ import annotations
 
@@ -51,6 +51,13 @@ def _jsonable(v):
     if isinstance(v, np.ndarray):
         return v.tolist()
     return v
+
+
+def maybe_savefig(fig, results_dir, name):
+    """Save ``fig`` as ``results_dir/name`` (120 dpi) when ``results_dir`` is set."""
+    if results_dir:
+        os.makedirs(results_dir, exist_ok=True)
+        fig.savefig(os.path.join(results_dir, name), dpi=120, bbox_inches="tight")
 
 
 @contextlib.contextmanager

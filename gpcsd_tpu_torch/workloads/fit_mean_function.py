@@ -20,7 +20,10 @@ Two modes: :func:`run_real` reads the reference's auditory text files
 baseline workload when ``stage1_dir`` has them); :func:`run` builds a
 surrogate with KNOWN injected per-trial shifts, so the pipeline doubles as
 a correctness check (estimated shifts must correlate with the truth, and
-GPCSD must beat kCSD on evoked recovery).  The figures are not ported.
+GPCSD must beat kCSD on evoked recovery).  With ``results_dir`` set,
+:func:`run` draws the JAX workload's figure
+(:func:`gpcsd_tpu_torch.workloads.figures.fit_mean_function_figure`) where
+matplotlib imports; :func:`run_real` draws none, as in the JAX workload.
 
 Run: ``python -m gpcsd_tpu_torch.workloads.fit_mean_function [--data-dir PATH
 [--stage1-dir PATH]] [--quick] [--device cpu]``
@@ -40,6 +43,7 @@ from ..models.gpcsd1d import GPCSD1D
 from ..models.shifts import estimate_shifts
 from ..ops.forward import fwd_model_1d
 from ..utils.segmentation import segment_csd
+from . import figures
 from .auditory_lfp import A, B, NX, fit_probe
 from .common import report, stage
 
@@ -213,6 +217,9 @@ def run(nx=24, nt=60, ntrials=40, n_restarts=3, shift_sd_true=3.0, seed=0,
         "n_sig_shift_pairs": int(np.sum(pvals[np.triu_indices(ns, 1)] < 0.05)) if ns > 1 else 0,
     })
     report("fit_mean_function", metrics, results_dir)
+    if results_dir:
+        figures.draw(figures.fit_mean_function_figure, "fit_mean_function.png", z, t, evoked_csd,
+                     labels, n_seg, res.tau, tau_true, shift_corr, results_dir)
     return metrics, res, tau_true
 
 

@@ -22,7 +22,9 @@ Parity target: the reference ``neuropixels/fit_gpcsd2d.py`` +
 (``neuropixel_viz_{probe}_m405751.pkl``); without it a surrogate two-probe
 dataset with Neuropixels-like geometry is drawn from a GPCSD2D prior on the
 device (numpy's generator, so not the JAX workload's array for the same
-seed).  The figures are not ported.
+seed).  With ``results_dir`` set, the JAX workload's per-probe layer figure
+is drawn (:func:`gpcsd_tpu_torch.workloads.figures.neuropixels_layer_figure`)
+where matplotlib imports.
 
 Run: ``python -m gpcsd_tpu_torch.workloads.neuropixels [--data-dir PATH] [--quick] [--device cpu]``
 """
@@ -42,6 +44,7 @@ from ..models.covariances import GPCSDTemporalCovMatern, GPCSDTemporalCovSE
 from ..models.gpcsd2d import GPCSD2D
 from ..models.priors import InvGamma
 from ..models.torus_graph import bootstrap_partial_plv, torus_graph_fit
+from . import figures
 from .common import report, stage
 
 PROBES = ("probeC", "probeD")
@@ -212,6 +215,9 @@ def run(data_dir=None, n_restarts=20, ngl1=30, ngl2=120, nt=150, ntrials=40,
         with stage(timings, "predict", dev):
             model.predict(z, t, type="csd")
         metrics[f"{probe}_csd_pred_shape"] = list(model.csd_pred.shape)
+        if results_dir:
+            figures.draw(figures.neuropixels_layer_figure, f"neuropixels_{probe}_layers.png",
+                         probe, t.ravel(), depths, model.csd_pred, results_dir)
         with stage(timings, "phases", dev):
             for key, ph in band_phases(model.csd_pred, t, bands, phase_times, dev).items():
                 phases.setdefault(key, {})[probe] = ph

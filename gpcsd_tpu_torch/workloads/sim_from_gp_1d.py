@@ -10,7 +10,9 @@ posterior CSD against the generated CSD, with paired t-tests against the
 traditional-CSD baseline and, with ``kcsd=True``, against cross-validated
 kCSD.  The prior draw and the forward model run on the device; the prior
 draw comes from numpy's generator, so it is not the JAX workload's array
-for the same seed.  The figure is not ported.
+for the same seed.  With ``results_dir`` set, the JAX workload's figure is
+drawn (:func:`gpcsd_tpu_torch.workloads.figures.sim_from_gp_1d_figure`)
+where matplotlib imports.
 
 Run: ``python -m gpcsd_tpu_torch.workloads.sim_from_gp_1d [--quick] [--fix] [--device cpu]``
 """
@@ -25,6 +27,7 @@ from .. import config
 from ..models.gpcsd1d import GPCSD1D
 from ..models.trad import predictcsd_trad_1d
 from ..ops.forward import fwd_model_1d
+from . import figures
 from .common import mse, paired_t, r2, report, stage
 
 TRUE = dict(R=100.0, ell=200.0, se_sigma2=0.5, se_ell=20.0,
@@ -152,11 +155,17 @@ def run(ntrials=100, nt=60, nx=24, n_restarts=10, fix=False, seed=42,
         "fitted_spatial_ell": float(model.spatial_cov.params["ell"]["value"]),
         "fitted_sig2n": float(np.asarray(model.sig2n["value"])),
     }
+    kcsd_n = None
     if kcsd:
         with stage(timings, "kcsd", dev):
-            metrics.update(kcsd_scores(x, lfp, truth_n, gp_mse)[0])
+            kcsd_metrics, kcsd_n = kcsd_scores(x, lfp, truth_n, gp_mse)
+        metrics.update(kcsd_metrics)
 
-    report("sim_from_gp_1d" + ("_fix" if fix else ""), metrics, results_dir)
+    tag = "_fix" if fix else ""
+    report("sim_from_gp_1d" + tag, metrics, results_dir)
+    if results_dir:
+        figures.draw(figures.sim_from_gp_1d_figure, f"sim_from_gp_1d{tag}.png", x, t, truth_n,
+                     gp_n, t_n, kcsd_n, gp_mse, t_mse, results_dir, tag=tag)
     return metrics, model
 
 

@@ -9,7 +9,9 @@ batched over restarts) and compare CSD recovery (RMSE / R^2) against the
 traditional columnwise-CSD baseline.  The prior draw, the forward model,
 the fit and both predictions run on the device; the prior draw comes from
 numpy's generator, so it is not the JAX workload's array for the same
-seed.  The figure is not ported.
+seed.  With ``results_dir`` set, the JAX workload's figure is drawn
+(:func:`gpcsd_tpu_torch.workloads.figures.sim_from_gp_2d_figure`) where
+matplotlib imports.
 
 Run: ``python -m gpcsd_tpu_torch.workloads.sim_from_gp_2d [--quick] [--device cpu]``
 """
@@ -26,6 +28,7 @@ from ..models.gpcsd2d import GPCSD2D
 from ..models.trad import predictcsd_trad_2d
 from ..ops.forward import fwd_model_2d
 from ..utils.grids import expand_grid
+from . import figures
 from .common import mse, r2, report, stage
 
 TRUE = dict(R=30.0, ell1=40.0, ell2=100.0, se_s2=20.0, se_ell=5.0,
@@ -111,6 +114,9 @@ def run(nt=30, ntrials=3, nz1=12, nz2=100, nx1=4, nx2=25, ngl1=15, ngl2=40,
         "tcsd_shape_ok": list(tcsd.shape),
     }
     report("sim_from_gp_2d", metrics, results_dir)
+    if results_dir:
+        figures.draw(figures.sim_from_gp_2d_figure, "sim_from_gp_2d.png", z1, z2, nz1, nz2, nt,
+                     truth_n, norm(oracle), norm(fitted), results_dir)
     return metrics, model
 
 

@@ -6,7 +6,9 @@ a toy 4-dipole CSD template pushed through the 1D forward model, white
 noise at SNR 30, GPCSD fit with 10 restarts (L-BFGS batched over restarts
 on the device), posterior CSD on the dense grid, traditional CSD, and kCSD
 with cross-validation (:mod:`gpcsd_tpu_torch.models.kcsd`, numpy on the
-host) for comparison.  The figure is not ported.
+host) for comparison.  With ``results_dir`` set, the JAX workload's figure is
+drawn (:func:`gpcsd_tpu_torch.workloads.figures.simple_template_1d_figure`)
+where matplotlib imports.
 
 Run: ``python -m gpcsd_tpu_torch.workloads.simple_template_1d [--quick] [--device cpu]``
 """
@@ -24,6 +26,7 @@ from ..models.kcsd import KCSD1D
 from ..models.trad import predictcsd_trad_1d
 from ..ops.forward import fwd_model_1d
 from ..utils.grids import normalize
+from . import figures
 from .common import mse, r2, report, stage
 
 
@@ -102,6 +105,9 @@ def run(n_restarts=10, deltaz=10.0, nt=50, nx=24, snr=30, seed=1, results_dir=No
         metrics[f"{name}_kcsd_mse"] = float(mse(normalize(kcsd_est), truth_kcsd))
         preds[name] = (model, est)
 
+    if results_dir:
+        figures.draw(figures.simple_template_1d_figure, "simple_template_1d.png", z, t, x,
+                     csd_true, lfp_noisy, preds, results_dir)
     report("simple_template_1d", metrics, results_dir)
     return metrics, preds
 

@@ -1,5 +1,5 @@
-"""PyTorch port on the card: the quadform CUDA kernel, the log-joint (single
-and batched, 1D and 2D), ``predict``, ``sample_posterior``, the batched
+"""PyTorch port on the card: the quadform CUDA kernel (scalar and per-trial),
+the log-joint (single and batched, 1D and 2D), ``predict``, ``sample_posterior``, the batched
 L-BFGS ``fit``, and the analysis stages (``signal``, ``torus_graph_fit`` and
 its bootstrap, ``estimate_shifts``) on CUDA, against their plain versions
 and the CPU.
@@ -59,6 +59,34 @@ def test_kernel_matches_reference(shape):
     b = [t.clone().requires_grad_() for t in ins]
     ga = torch.autograd.grad(qf.quadform(*a), a[:3])
     gb = torch.autograd.grad(qf.quadform_reference(*b), b[:3])
+    for x, y in zip(ga, gb):
+        torch.testing.assert_close(x, y, rtol=1e-10, atol=1e-10 * float(y.abs().max()))
+
+
+@pytest.mark.parametrize("shape", [
+    # small; an odd nt with trials straddling the 64-row tiles (the real-data
+    # shift stage's width); one trial; the shift stages' batches
+    (5, 7, 3), (24, 151, 7), (3, 10, 1), (24, 60, 40), (24, 151, 60),
+])
+def test_rows_kernel_matches_reference(shape):
+    """The per-trial output: every trial within 1e-12 of its plain version,
+    the sum within 1e-13 of the scalar kernel, two calls the same bits,
+    gradients as the plain version's; counted apart from the scalar kernel."""
+    ins = inputs(11, *shape)
+    before, rows_before = qf.launch_count, qf.rows_launch_count
+    got = qf.quadform_rows_cuda(*ins)
+    assert (qf.launch_count, qf.rows_launch_count) == (before, rows_before + 1)
+    want = qf.quadform_rows_reference(*ins)
+    assert got.shape == (shape[2],)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=0.0)
+    assert torch.equal(qf.quadform_rows_cuda(*ins), got)  # fixed-order reduction
+    total = float(qf.quadform_cuda(*ins))
+    assert abs(float(got.sum()) - total) <= 1e-13 * abs(total)
+    w = torch.linspace(-1.0, 2.0, shape[2], dtype=torch.float64, device="cuda")
+    a = [t.clone().requires_grad_() for t in ins]
+    b = [t.clone().requires_grad_() for t in ins]
+    ga = torch.autograd.grad((qf.quadform_rows(*a) * w).sum(), a)
+    gb = torch.autograd.grad((qf.quadform_rows_reference(*b) * w).sum(), b)
     for x, y in zip(ga, gb):
         torch.testing.assert_close(x, y, rtol=1e-10, atol=1e-10 * float(y.abs().max()))
 
@@ -270,9 +298,15 @@ def test_torus_graph_fit_cuda_matches_cpu():
     assert float((bs - bs_cpu).abs().max()) <= 1e-9
 
 
-def test_estimate_shifts_cuda_matches_cpu():
+def test_estimate_shifts_cuda_matches_cpu(monkeypatch):
+    """Card vs CPU; each batched evaluation of the trials is one launch of
+    the per-trial kernel and none of the scalar one."""
+    from gpcsd_tpu_torch.models import shifts
     from gpcsd_tpu_torch.models.shifts import estimate_shifts
 
+    calls = []
+    shift_nll = shifts.shift_nll
+    monkeypatch.setattr(shifts, "shift_nll", lambda *a: calls.append(1) or shift_nll(*a))
     gpu, cpu = small_models()
     with torch.no_grad():
         fg, fc = gpu._fns().build_factors(gpu._theta()), cpu._fns().build_factors(cpu._theta())
@@ -280,9 +314,10 @@ def test_estimate_shifts_cuda_matches_cpu():
     lfp = rng.normal(size=gpu.lfp.shape)
     nx, nt = lfp.shape[:2]
     mu = np.sin(np.linspace(0, 3, nt))[None, None, :] * np.linspace(-1, 1, nx)[None, :, None]
-    before = qf.launch_count
+    before, rows_before = qf.launch_count, qf.rows_launch_count
     rg = estimate_shifts(lfp, np.zeros((nx, nt)), mu, np.arange(nt) * 1.0, fg, maxiter=30, device="cuda")
-    assert qf.launch_count - before == int(rg.n_evals.sum())
+    assert qf.launch_count == before
+    assert qf.rows_launch_count - rows_before == len(calls) > 0
     rc = estimate_shifts(lfp, np.zeros((nx, nt)), mu, np.arange(nt) * 1.0, fc, maxiter=30, device="cpu")
     assert np.abs(rg.tau - rc.tau).max() <= 1e-6
     assert np.array_equal(rg.converged, rc.converged)
