@@ -167,8 +167,7 @@ Phases, one JSON line each:
    run forced with ``paths=[]``: launches = evaluations, the points
    distinct, the live line a rate with every gate passed or null with its
    reasons, its launches = the sampler's own count of evaluations plus the
-   Hessian's rows; the device busy time per evaluation under the profiler
-   comes last (line ``bench_profile``, with the 2D point's);
+   Hessian's rows;
 33. bench_2d (after phase 14): ``bench_2d`` at the Neuropixels point, its
    numpy baseline, its last value card vs CPU within ``TOL_2D``'s value limit;
 34. nuts_2d: the 2D probe's twin (``gpcsd_tpu_torch.nuts_2d_probe``) at full
@@ -2095,7 +2094,7 @@ def phase_bench(qf, dev, smi):
     evals/s over 5 repeats of 50 distinct points (median, quartiles, the
     events' ms per evaluation), the numpy baseline, the NUTS line from the
     banked paper run and, forced with ``paths=[]``, from the live 4 x (40 +
-    40) run.  Returns the launches, the bench model and the median evals/s."""
+    40) run.  Returns the launches and the median evals/s."""
     from gpcsd_tpu_torch import bench
     from gpcsd_tpu_torch.infer import nuts
 
@@ -2136,7 +2135,7 @@ def phase_bench(qf, dev, smi):
           f"bench: {live_launches} live launches for {live_evals} sampler evaluations "
           f"and {hessian_rows} Hessian rows")
     check(set(shapes) == {SHAPE_1D}, f"bench: launches at {shapes}")
-    return launches, m, res["median"]
+    return launches, res["median"]
 
 
 def phase_bench_2d(qf, gpu, cpu, smi):
@@ -2271,7 +2270,6 @@ def main():
     check(torch.cuda.is_available(), "CUDA is not available: this check needs a GPU")
     sys.path.insert(0, ROOT)
     from gpcsd_tpu_torch import paper
-    from gpcsd_tpu_torch.bench import device_busy_ms_per_eval
     from gpcsd_tpu_torch.infer.map import sample_restarts, value_and_grad
     from gpcsd_tpu_torch.ops.cuda import quadform as qf
     from gpcsd_tpu_torch.utils.profiling import nvidia_smi
@@ -2339,7 +2337,7 @@ def main():
     # before the nuts phase, whose profiler may leave its tracing cost on the
     # process's later launches
     device_ms, plain_device_ms = phase_timing(qf, dev, smi)
-    launches_bench, bench_model, evals_per_s = phase_bench(qf, dev, smi)
+    launches_bench, evals_per_s = phase_bench(qf, dev, smi)
 
     # ---- the 2D path at the Neuropixels shape; its profile comes last
     gpu2d = paper.neuropixels_problem(0, device=dev)
@@ -2404,8 +2402,6 @@ def main():
     check(sum(par_sharded.values()) > 0, f"the trial-sharded block {SHAPE_SHARDED} launched no kernel")
 
     emit("timing_2d", **timing_2d, **profile_2d(gpu2d))
-    emit("bench_profile", card=smi, bench=device_busy_ms_per_eval(bench_model),
-         bench_2d=device_busy_ms_per_eval(gpu2d))
     analysis = {}
     for shape in (SHAPE_AUD, SHAPE_FMF):
         kt = kernel_times(qf, shape, dev)

@@ -19,9 +19,7 @@ the same ``n_iters`` distinct points ``u0 + 0.01 N(0, 1)`` (from
 warm-up; its host clock stops after ``torch.cuda.synchronize()``, and a
 pair of CUDA events brackets the same loop.  The figure is the median over
 the repeats, with the quartiles beside it.  An event pair measures the
-stream's span, idle gaps included; the device's busy time is read apart, by
-:func:`device_busy_ms_per_eval` under ``torch.profiler``, outside the timed
-repeats.
+stream's span, idle gaps included.
 
 :func:`artifact_gate_failures` is the one place that decides whether a
 posterior artifact may publish a rate; :mod:`gpcsd_tpu_torch.paper_run` and
@@ -231,31 +229,6 @@ def bench_evals_per_s(m, n_iters=50, repeats=5, warmup=3) -> dict:
         "first_call_s": first_call_s, "value": float(f), "points": points,
         "evals": max(warmup, 1) + repeats * n_iters, "launches": qf.launch_count - before,
     }
-
-
-def device_busy_ms_per_eval(m, n_evals=10) -> dict:
-    """Device time of one value+grad evaluation of ``m`` on the card, from
-    ``torch.profiler``: the summed durations of the card's kernels and
-    copies over ``n_evals`` evaluations at the first :func:`bench_points`,
-    after one warm-up, and the share of the profiled wall time they fill."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fns, Y, dev = m._fns(), m._Y(), m.device
-    us = torch.as_tensor(bench_points(m, n_evals), device=dev)
-    _value_and_grad(fns, Y, us[0])
-    _sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for u in us:
-            _value_and_grad(fns, Y, u)
-        _sync()
-        wall = time.perf_counter() - t0
-    busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA) * 1e-3
-    return {"device_busy_ms_per_eval": busy_ms / n_evals,
-            "profiled_wall_ms_per_eval": 1e3 * wall / n_evals,
-            "busy_share_profiled": 1e-3 * busy_ms / wall}
 
 
 def reference_style_loglik_numpy(theta, x, t, gl_x, gl_w, Y):
@@ -504,8 +477,7 @@ def main() -> int:
     _print_repeats(ours, "value+grad")
     base = bench_baseline(m)
     nuts = bench_nuts(base, device="cuda")
-    busy = device_busy_ms_per_eval(m)
-    print(json.dumps({"numpy_baseline_evals_per_s": base, **busy}), flush=True)
+    print(json.dumps({"numpy_baseline_evals_per_s": base}), flush=True)
     # implied reference-style sampler rate: forward evals/s / leapfrogs per
     # sample (no reverse-pass cost charged -> optimistic for the baseline)
     base_nuts = base / max(nuts.steps or 32.0, 1.0)
@@ -544,8 +516,7 @@ def main_2d() -> int:
     res = bench_2d(m)
     _print_repeats(res, "value+grad 2D")
     base = bench_baseline_2d(m)
-    busy = device_busy_ms_per_eval(m)
-    print(json.dumps({"numpy_baseline_evals_per_s": base, **busy}), flush=True)
+    print(json.dumps({"numpy_baseline_evals_per_s": base}), flush=True)
     print(json.dumps({
         "metric": "GPCSD2D log-joint value+grad evals/s "
                   f"(nx=69,nt={paper.NP_NT},trials={paper.NP_NTRIALS},"

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..utils.profiling import count
 
 
 class DualAveragingState(NamedTuple):
@@ -169,6 +170,7 @@ def find_reasonable_step_size(vg, z, xi, inv_mass, init=1.0):
     active = torch.ones_like(up)
     for _ in range(50):
         active = active & torch.where(up, la > half, la < half) & (step > 1e-10) & (step < 1e7)
+        count("host_sync.hmc.step_search")
         if not bool(active.any()):
             break
         step = torch.where(active, step * factor, step)

@@ -16,7 +16,9 @@ value-and-gradient call and scattered back.  On the card a batched
 evaluation costs the sum of its rows, so a frozen row that were still
 evaluated would cost a full step.  The host reads the device once per
 iteration (which rows are live) and once per line-search pass (which rows
-still search); :class:`LBFGSResult` carries both counts.
+still search); :class:`LBFGSResult` carries both counts.  Each read, and
+each upload of the gathered rows' indices, is a sync on the card
+(counters ``host_sync.lbfgs.live``, ``.linesearch``, ``.index``).
 
 The JAX body evaluates the objective at the accepted point twice (the value
 in the search, the gradient after it); here every trial point gets one
@@ -44,6 +46,7 @@ import torch
 
 from ..io.checkpoint import load_sampler_state, sampler_state_exists, save_sampler_state
 from ..models.core import value_and_grad_rows
+from ..utils.profiling import count, span
 
 
 class LBFGSTimeBudget(Exception):
@@ -197,6 +200,7 @@ def lbfgs_minimize(
     n_iter_start = n_iter
 
     while True:
+        count("host_sync.lbfgs.live")
         live_h = np.flatnonzero((~done & (k < max_iter)).cpu().numpy())
         if state_path and n_iter > n_iter_start and (n_iter % chunk_iters == 0 or live_h.size == 0):
             # the tensors above are updated in place, so ``state`` holds them
@@ -211,57 +215,65 @@ def lbfgs_minimize(
         n_syncs += 1
         if live_h.size == 0:
             break
-        live = torch.as_tensor(live_h, device=dev)
-        ul, fl, gl, kl = u[live], f[live], g[live], k[live]
-        sl, yl, rl = s_hist[live], y_hist[live], rho[live]
-        data_live = tuple(r[live] for r in row_data)
+        with span("gpcsd.lbfgs.iteration", iteration=n_iter, live=live_h.size):
+            count("host_sync.lbfgs.index")
+            live = torch.as_tensor(live_h, device=dev)
+            ul, fl, gl, kl = u[live], f[live], g[live], k[live]
+            sl, yl, rl = s_hist[live], y_hist[live], rho[live]
+            data_live = tuple(r[live] for r in row_data)
 
-        d = -_two_loop(gl, sl, yl, rl, kl, m)
-        # steepest descent when the direction is not a descent direction
-        d = torch.where((_dot(d, gl) < 0)[:, None], d, -gl)
+            d = -_two_loop(gl, sl, yl, rl, kl, m)
+            # steepest descent when the direction is not a descent direction
+            d = torch.where((_dot(d, gl) < 0)[:, None], d, -gl)
 
-        # ---- Armijo backtracking on the projected step; every row stops
-        # halving at its own first success
-        u_new, f_new, g_new = ul.clone(), fl.clone(), gl.clone()
-        ls_ok = torch.zeros_like(fl, dtype=torch.bool)
-        search_h = np.arange(live_h.size)
-        for it in range(max(max_linesearch, 1)):
-            search = torch.as_tensor(search_h, device=dev)
-            us = project(ul[search] + (0.5 ** it) * d[search])
-            fs, gs = evaluate(us, tuple(r[search] for r in data_live))
-            n_evals[live_h[search_h]] += 1
-            ok = torch.isfinite(fs) & (fs <= fl[search] + c1 * _dot(gl[search], us - ul[search]))
-            u_new[search], f_new[search], g_new[search], ls_ok[search] = us, fs, gs, ok
-            search_h = search_h[~ok.cpu().numpy()]
-            n_syncs += 1
-            if search_h.size == 0:
-                break
+            # ---- Armijo backtracking on the projected step; every row stops
+            # halving at its own first success
+            u_new, f_new, g_new = ul.clone(), fl.clone(), gl.clone()
+            ls_ok = torch.zeros_like(fl, dtype=torch.bool)
+            search_h = np.arange(live_h.size)
+            for it in range(max(max_linesearch, 1)):
+                with span("gpcsd.lbfgs.linesearch", it=it, rows=search_h.size):
+                    count("host_sync.lbfgs.index")
+                    search = torch.as_tensor(search_h, device=dev)
+                    us = project(ul[search] + (0.5 ** it) * d[search])
+                    fs, gs = evaluate(us, tuple(r[search] for r in data_live))
+                    n_evals[live_h[search_h]] += 1
+                    ok = torch.isfinite(fs) & (
+                        fs <= fl[search] + c1 * _dot(gl[search], us - ul[search]))
+                    u_new[search], f_new[search], g_new[search], ls_ok[search] = us, fs, gs, ok
+                    count("host_sync.lbfgs.linesearch")
+                    search_h = search_h[~ok.cpu().numpy()]
+                n_syncs += 1
+                if search_h.size == 0:
+                    break
 
-        # ---- history update, convergence, acceptance
-        s = u_new - ul
-        y = g_new - gl
-        sy = _dot(s, y)
-        do_update = ls_ok & (sy > 1e-10 * torch.linalg.norm(s, dim=-1) * torch.linalg.norm(y, dim=-1))
-        rows = torch.arange(live_h.size, device=dev)
-        slot = torch.remainder(kl, m)
-        upd = do_update[:, None]
-        sl[rows, slot] = torch.where(upd, s, sl[rows, slot])
-        yl[rows, slot] = torch.where(upd, y, yl[rows, slot])
-        rl[rows, slot] = torch.where(do_update, 1.0 / torch.clamp(sy, min=1e-300), rl[rows, slot])
+            # ---- history update, convergence, acceptance
+            s = u_new - ul
+            y = g_new - gl
+            sy = _dot(s, y)
+            do_update = ls_ok & (
+                sy > 1e-10 * torch.linalg.norm(s, dim=-1) * torch.linalg.norm(y, dim=-1))
+            rows = torch.arange(live_h.size, device=dev)
+            slot = torch.remainder(kl, m)
+            upd = do_update[:, None]
+            sl[rows, slot] = torch.where(upd, s, sl[rows, slot])
+            yl[rows, slot] = torch.where(upd, y, yl[rows, slot])
+            rl[rows, slot] = torch.where(do_update, 1.0 / torch.clamp(sy, min=1e-300),
+                                         rl[rows, slot])
 
-        g_new = torch.where(torch.isfinite(g_new), g_new, gl)
-        converged = proj_grad_norm(u_new, g_new) < gtol
-        f_stall = (fl - f_new) <= ftol * torch.clamp(
-            torch.maximum(torch.abs(fl), torch.abs(f_new)), min=1.0
-        )
-        accept = ls_ok[:, None]
-        u[live] = torch.where(accept, u_new, ul)
-        f[live] = torch.where(ls_ok, f_new, fl)
-        g[live] = torch.where(accept, g_new, gl)
-        s_hist[live], y_hist[live], rho[live] = sl, yl, rl
-        k[live] = kl + 1
-        done[live] = converged | ~ls_ok | f_stall
-        n_iter += 1
+            g_new = torch.where(torch.isfinite(g_new), g_new, gl)
+            converged = proj_grad_norm(u_new, g_new) < gtol
+            f_stall = (fl - f_new) <= ftol * torch.clamp(
+                torch.maximum(torch.abs(fl), torch.abs(f_new)), min=1.0
+            )
+            accept = ls_ok[:, None]
+            u[live] = torch.where(accept, u_new, ul)
+            f[live] = torch.where(ls_ok, f_new, fl)
+            g[live] = torch.where(accept, g_new, gl)
+            s_hist[live], y_hist[live], rho[live] = sl, yl, rl
+            k[live] = kl + 1
+            done[live] = converged | ~ls_ok | f_stall
+            n_iter += 1
 
     return LBFGSResult(
         u=u, f=f, n_iter=k, converged=proj_grad_norm(u, g) < gtol, failed=failed,

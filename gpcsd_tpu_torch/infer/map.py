@@ -26,6 +26,7 @@ import scipy.optimize
 import torch
 
 from ..models.params import ParamSet
+from ..utils.profiling import traced_call
 from .lbfgs import lbfgs_minimize
 
 
@@ -72,6 +73,7 @@ def value_and_grad(fn: Callable, u: np.ndarray, device) -> tuple[float, np.ndarr
     return float(f.detach()), g.detach().cpu().numpy()
 
 
+@traced_call("gpcsd.map_fit")
 def map_fit(
     neg_log_joint: Callable,
     param_set: ParamSet,

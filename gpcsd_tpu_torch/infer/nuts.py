@@ -53,6 +53,7 @@ import torch
 from .. import config
 from ..io.checkpoint import load_sampler_state, sampler_state_exists, save_sampler_state
 from ..models.core import value_and_grad_rows
+from ..utils.profiling import count, span
 from .dense_metric import (
     dense_welford_cov,
     dense_welford_init,
@@ -104,7 +105,8 @@ def chain_generators(seed: int, n_chains: int):
 def draw_noise(gens, dim: int, max_depth: int,
                device=config.DEFAULT_DEVICE) -> TransitionNoise:
     """Draw one transition's :class:`TransitionNoise`, chain ``c`` from
-    ``gens[c]`` (float64, drawn on the CPU and moved to ``device``)."""
+    ``gens[c]`` (float64, drawn on the CPU and moved to ``device``: a host
+    sync a field on the card, counted as ``host_sync.nuts.noise``)."""
     device = config.get_device(device)
     f64 = torch.float64
     nleaf = 2 ** max(max_depth - 1, 0)
@@ -117,6 +119,7 @@ def draw_noise(gens, dim: int, max_depth: int,
         )
         for g in gens
     ]
+    count("host_sync.nuts.noise", len(TransitionNoise._fields))
     return TransitionNoise(*(torch.stack(field).to(device) for field in zip(*per_chain)))
 
 
@@ -173,6 +176,7 @@ def _build_subtree(vg, u_leaf, z0, r0, grad0, direction, num_leaves, energy0,
     rho_before_ckpt = torch.zeros_like(v_ckpt)
 
     for n in range(num_leaves):
+        count("host_sync.nuts.leaf")
         idx = torch.nonzero(~turning & ~diverging)[:, 0]
         if idx.numel() == 0:
             break
@@ -252,6 +256,7 @@ def nuts_transition(vg: Callable, z, logp, grad, noise: TransitionNoise, step_si
     depth = torch.zeros(C, dtype=torch.int64, device=device)
 
     for d in range(max_depth):
+        count("host_sync.nuts.depth")
         act = torch.nonzero(~turning & ~diverging)[:, 0]
         if act.numel() == 0:
             break
@@ -259,13 +264,14 @@ def nuts_transition(vg: Callable, z, logp, grad, noise: TransitionNoise, step_si
         fwd = direction > 0
         fcol = fwd[:, None]
         im = inv_mass[act]
-        sub = _build_subtree(
-            vg, noise.u_leaf[act, d],
-            torch.where(fcol, z_fwd[act], z_bwd[act]),
-            torch.where(fcol, r_fwd[act], r_bwd[act]),
-            torch.where(fcol, grad_fwd[act], grad_bwd[act]),
-            direction, 2 ** d, energy0[act], step_size[act], im, max_depth,
-        )
+        with span("gpcsd.nuts.subtree", depth=d, rows=act.numel()):
+            sub = _build_subtree(
+                vg, noise.u_leaf[act, d],
+                torch.where(fcol, z_fwd[act], z_bwd[act]),
+                torch.where(fcol, r_fwd[act], r_bwd[act]),
+                torch.where(fcol, grad_fwd[act], grad_bwd[act]),
+                direction, 2 ** d, energy0[act], step_size[act], im, max_depth,
+            )
         num_steps[act] += sub.n
         sum_accept[act] += sub.sum_accept
         bad = sub.turning | sub.diverging
@@ -364,6 +370,7 @@ def stepsize_floor_guard(carry, nchains, at=-1, floor=1e-6):
     :return: ``carry`` itself when no chain is sick (a healthy run never
         triggers the guard), else a repaired copy
     """
+    count("host_sync.nuts.guard")
     steps = np.exp(carry[3].log_step_avg.detach().cpu().numpy())
     # reference = median of the plausibly-healthy chains (within 1e3x of
     # the best), so a MAJORITY of collapsed chains cannot drag the median
@@ -385,6 +392,7 @@ def stepsize_floor_guard(carry, nchains, at=-1, floor=1e-6):
         if x.ndim >= 1 and x.shape[0] == nchains:
             row = x[donor].clone()
             x = x.clone()
+            count("host_sync.nuts.guard")
             x[torch.as_tensor(sick, device=x.device)] = row
         return x
 
@@ -485,6 +493,7 @@ def nuts_chains(
     else:
         start = 0
         xi0 = torch.stack([torch.randn(dim, generator=g, dtype=torch.float64) for g in gens])
+        count("host_sync.nuts.noise")
         step0 = find_reasonable_step_size(vg, u0s, xi0.to(device=device, dtype=dtype), inv_mass,
                                           init=init_step_size)
         z = u0s.clone()
@@ -498,39 +507,42 @@ def nuts_chains(
 
     for i in range(start, total):
         warm = i < num_warmup
-        step_size = torch.exp(da.log_step if warm else da.log_step_avg)
-        noise = draw_noise(gens, dim, max_depth, device)
-        z, logp, grad, stats = nuts_transition(
-            vg, z, logp, grad, noise, step_size, inv_mass, max_depth=max_depth
-        )
-        if warm:
-            da = da_update(da, stats.accept_prob, target=target_accept)
-            if slow[i] and adapt_mass:
-                wf = wf_update(wf, z)
-            if window_end[i] and adapt_mass:
-                inv_mass = wf_estimate(wf)
-                da = da_init(torch.exp(da.log_step_avg))
-                wf = wf_init()
-            if pool_warmup and adapt_mass and (i + 1) % POOL_EVERY == 0:
-                wf = _pool_welford_chains(wf)
-            if i in guard_at:
-                z, logp, grad, da, wf, inv_mass = stepsize_floor_guard(
-                    (z, logp, grad, da, wf, inv_mass), nchains, at=i
-                )
-        else:
-            k = i - num_warmup
-            samples[:, k], logps[:, k] = z, logp
-            accept[:, k], steps[:, k], divs[:, k] = stats.accept_prob, stats.num_steps, stats.diverging
-        carry = (z, logp, grad, da, wf, inv_mass)
-        if state_path is not None and ((i + 1) % save_every == 0 or i + 1 == total):
-            save_sampler_state(
-                {"run_id": run_id, "next": i + 1, "carry": carry,
-                 "buffers": (samples, logps, accept, steps, divs),
-                 "generators": [g.get_state().numpy() for g in gens]},
-                state_path,
+        with span("gpcsd.nuts.transition", i=i, warm=warm):
+            step_size = torch.exp(da.log_step if warm else da.log_step_avg)
+            noise = draw_noise(gens, dim, max_depth, device)
+            z, logp, grad, stats = nuts_transition(
+                vg, z, logp, grad, noise, step_size, inv_mass, max_depth=max_depth
             )
+            if warm:
+                da = da_update(da, stats.accept_prob, target=target_accept)
+                if slow[i] and adapt_mass:
+                    wf = wf_update(wf, z)
+                if window_end[i] and adapt_mass:
+                    inv_mass = wf_estimate(wf)
+                    da = da_init(torch.exp(da.log_step_avg))
+                    wf = wf_init()
+                if pool_warmup and adapt_mass and (i + 1) % POOL_EVERY == 0:
+                    wf = _pool_welford_chains(wf)
+                if i in guard_at:
+                    z, logp, grad, da, wf, inv_mass = stepsize_floor_guard(
+                        (z, logp, grad, da, wf, inv_mass), nchains, at=i
+                    )
+            else:
+                k = i - num_warmup
+                samples[:, k], logps[:, k] = z, logp
+                accept[:, k], steps[:, k] = stats.accept_prob, stats.num_steps
+                divs[:, k] = stats.diverging
+            carry = (z, logp, grad, da, wf, inv_mass)
+            if state_path is not None and ((i + 1) % save_every == 0 or i + 1 == total):
+                save_sampler_state(
+                    {"run_id": run_id, "next": i + 1, "carry": carry,
+                     "buffers": (samples, logps, accept, steps, divs),
+                     "generators": [g.get_state().numpy() for g in gens]},
+                    state_path,
+                )
         if callback is not None:
-            callback(i, carry)
+            with span("gpcsd.nuts.callback", i=i):
+                callback(i, carry)
 
     return NUTSResult(
         samples=samples, logp=logps, accept_prob=accept, num_steps=steps, diverging=divs,

@@ -28,6 +28,7 @@ import torch
 from ..ops import kronlik
 from ..ops.kernels import TEMPORAL_KERNELS
 from ..ops.rff import rff_draws, se_rff_features
+from ..utils.profiling import count, pass_span, span
 from .params import ParamSet
 
 
@@ -142,11 +143,21 @@ def value_and_grad_rows(fn: Callable, u: torch.Tensor):
     batched ``log_prob`` does), so one backward of the sum gives all ``C``
     gradients.  Both results are detached, on the device of ``u``.
 
+    Every batched pass of the program (the samplers, the optimizer, the
+    Laplace Hessian, the shift stage) goes through here: it is counted
+    (``pass.count``, ``pass.rows``) and traced (span ``gpcsd.pass``, its
+    backward's host interval ``gpcsd.pass.backward``).
+
     :return: ``(values (C,), gradients (C, dim))``
     """
-    u = u.detach().requires_grad_(True)
-    f = fn(u)
-    (g,) = torch.autograd.grad(f.sum(), u)
+    rows = u.shape[0]
+    count("pass.count")
+    count("pass.rows", rows)
+    with pass_span(rows):
+        u = u.detach().requires_grad_(True)
+        f = fn(u)
+        with span("gpcsd.pass.backward"):
+            (g,) = torch.autograd.grad(f.sum(), u)
     return f.detach(), g
 
 

@@ -23,6 +23,7 @@ from .. import config
 from ..infer.map import map_fit, sample_restarts
 from ..ops.kernels import se
 from ..ops.spatial import kphi_1d, quad_weights_1d
+from ..utils.profiling import traced_call
 from .core import (
     ModelFns,
     make_model_fns,
@@ -296,6 +297,7 @@ class GPCSD1D(InferenceAPIMixin):
         with torch.no_grad():
             return float(self._fns().loglik(self._theta(), self._Y()))
 
+    @traced_call("gpcsd.fit")
     def fit(
         self,
         n_restarts=10,

@@ -20,6 +20,7 @@ from ..infer.map import map_fit, sample_restarts
 from ..ops.kernels import se_2d, sq_diffs_2d
 from ..ops.spatial import kphi_2d, pairwise_w, quad_weights_2d
 from ..utils.grids import reduce_grid
+from ..utils.profiling import traced_call
 from .core import (
     ModelFns,
     make_model_fns,
@@ -306,6 +307,7 @@ class GPCSD2D(InferenceAPIMixin):
         with torch.no_grad():
             return float(self._fns().loglik(self._theta(), self._Y()))
 
+    @traced_call("gpcsd.fit")
     def fit(
         self,
         n_restarts=10,

@@ -22,6 +22,7 @@ from ..infer.diagnostics import ess_bulk, ess_tail, rhat
 from ..infer.map import sample_restarts
 from ..infer.nuts import chain_generators, nuts_chains
 from ..infer.smc import smc_run
+from ..utils.profiling import traced_call
 from .core import ModelFns, value_and_grad_rows
 from .reparam import AmplitudeReparam
 
@@ -142,6 +143,7 @@ class InferenceAPIMixin:
             for name in ps.names
         ], axis=1)
 
+    @traced_call("gpcsd.sample_posterior")
     def sample_posterior(
         self,
         n_chains=4,

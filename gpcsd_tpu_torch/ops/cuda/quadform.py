@@ -30,6 +30,8 @@ from pathlib import Path
 
 import torch
 
+from ...utils.profiling import span
+
 _PKG = Path(__file__).resolve().parents[2]
 SOURCE = _PKG / "csrc" / "quadform.cu"
 BUILD_DIR = _PKG / "_build"
@@ -210,20 +212,21 @@ class QuadForm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        qs, qt, dinv, Y = ctx.saved_tensors
-        need_qs, need_qt, need_dinv, need_y = ctx.needs_input_grad
-        y_qt = Y @ qt  # (B, nx, nt)
-        alpha = qs.mT @ y_qt
-        G = dinv * alpha
-        g_qs = g_qt = g_dinv = g_y = None
-        if need_qs:
-            g_qs = 2.0 * grad * torch.tensordot(y_qt, G, dims=([0, 2], [0, 2]))
-        if need_qt:
-            g_qt = 2.0 * grad * torch.tensordot(qs.mT @ Y, G, dims=([0, 1], [0, 1]))
-        if need_dinv:
-            g_dinv = grad * torch.sum(torch.square(alpha), dim=0)
-        if need_y:
-            g_y = 2.0 * grad * (qs @ G @ qt.mT)
+        with span("gpcsd.quadform.backward"):
+            qs, qt, dinv, Y = ctx.saved_tensors
+            need_qs, need_qt, need_dinv, need_y = ctx.needs_input_grad
+            y_qt = Y @ qt  # (B, nx, nt)
+            alpha = qs.mT @ y_qt
+            G = dinv * alpha
+            g_qs = g_qt = g_dinv = g_y = None
+            if need_qs:
+                g_qs = 2.0 * grad * torch.tensordot(y_qt, G, dims=([0, 2], [0, 2]))
+            if need_qt:
+                g_qt = 2.0 * grad * torch.tensordot(qs.mT @ Y, G, dims=([0, 1], [0, 1]))
+            if need_dinv:
+                g_dinv = grad * torch.sum(torch.square(alpha), dim=0)
+            if need_y:
+                g_y = 2.0 * grad * (qs @ G @ qt.mT)
         return g_qs, g_qt, g_dinv, g_y
 
 
@@ -241,21 +244,22 @@ class QuadFormRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        qs, qt, dinv, Y = ctx.saved_tensors
-        need_qs, need_qt, need_dinv, need_y = ctx.needs_input_grad
-        y_qt = Y @ qt  # (B, nx, nt)
-        alpha = qs.mT @ y_qt
-        w = grad[:, None, None]
-        Gw = w * (dinv * alpha)  # g_b G_b
-        g_qs = g_qt = g_dinv = g_y = None
-        if need_qs:
-            g_qs = 2.0 * torch.tensordot(y_qt, Gw, dims=([0, 2], [0, 2]))
-        if need_qt:
-            g_qt = 2.0 * torch.tensordot(qs.mT @ Y, Gw, dims=([0, 1], [0, 1]))
-        if need_dinv:
-            g_dinv = torch.sum(w * torch.square(alpha), dim=0)
-        if need_y:
-            g_y = 2.0 * (qs @ Gw @ qt.mT)
+        with span("gpcsd.quadform.backward"):
+            qs, qt, dinv, Y = ctx.saved_tensors
+            need_qs, need_qt, need_dinv, need_y = ctx.needs_input_grad
+            y_qt = Y @ qt  # (B, nx, nt)
+            alpha = qs.mT @ y_qt
+            w = grad[:, None, None]
+            Gw = w * (dinv * alpha)  # g_b G_b
+            g_qs = g_qt = g_dinv = g_y = None
+            if need_qs:
+                g_qs = 2.0 * torch.tensordot(y_qt, Gw, dims=([0, 2], [0, 2]))
+            if need_qt:
+                g_qt = 2.0 * torch.tensordot(qs.mT @ Y, Gw, dims=([0, 1], [0, 1]))
+            if need_dinv:
+                g_dinv = torch.sum(w * torch.square(alpha), dim=0)
+            if need_y:
+                g_y = 2.0 * (qs @ Gw @ qt.mT)
         return g_qs, g_qt, g_dinv, g_y
 
 

@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import count, span
 from .cuda.quadform import quadform
 
 _EIGH_GAP_EPS = 1e-12
@@ -44,10 +45,15 @@ class EighSafe(torch.autograd.Function):
     the whole batch: a sampler's divergent trajectory reaches such points
     and must see a non-finite density in that row only.  A single matrix
     goes to ``torch.linalg.eigh`` as it is.
+
+    On the card ``torch.linalg.eigh`` reads its error flag back to the host,
+    a sync per call (counter ``host_sync.kronlik.eigh``).  The backward runs
+    on autograd's device thread inside span ``gpcsd.kronlik.eigh_backward``.
     """
 
     @staticmethod
     def forward(ctx, a):
+        count("host_sync.kronlik.eigh")
         if a.ndim == 2:
             w, v = torch.linalg.eigh(a)
         else:
@@ -60,19 +66,20 @@ class EighSafe(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, w_bar, v_bar):
-        w, v = ctx.saved_tensors
-        inner = torch.zeros_like(v)
-        if v_bar is not None:
-            gap = w[..., None, :] - w[..., :, None]  # gap[i, j] = w_j - w_i
-            scale = torch.clamp(w.abs().amax(dim=-1, keepdim=True)[..., None], min=1.0)
-            eps = _EIGH_GAP_EPS * scale
-            f = gap / (gap * gap + eps * eps)
-            f.diagonal(dim1=-2, dim2=-1).zero_()
-            inner = f * (v.mT @ v_bar)
-        if w_bar is not None:
-            inner = inner + torch.diag_embed(w_bar)
-        a_bar = v @ inner @ v.mT
-        return 0.5 * (a_bar + a_bar.mT)
+        with span("gpcsd.kronlik.eigh_backward"):
+            w, v = ctx.saved_tensors
+            inner = torch.zeros_like(v)
+            if v_bar is not None:
+                gap = w[..., None, :] - w[..., :, None]  # gap[i, j] = w_j - w_i
+                scale = torch.clamp(w.abs().amax(dim=-1, keepdim=True)[..., None], min=1.0)
+                eps = _EIGH_GAP_EPS * scale
+                f = gap / (gap * gap + eps * eps)
+                f.diagonal(dim1=-2, dim2=-1).zero_()
+                inner = f * (v.mT @ v_bar)
+            if w_bar is not None:
+                inner = inner + torch.diag_embed(w_bar)
+            a_bar = v @ inner @ v.mT
+            return 0.5 * (a_bar + a_bar.mT)
 
 
 def eigh_safe(a):
@@ -154,13 +161,14 @@ def comp_eig_d(Ks, Kt, sig2n, het_exact: bool = False) -> KronFactors:
         factorization instead of the reference's approximation; no-op for
         scalar sig2n.
     """
-    sig2n = torch.as_tensor(sig2n, dtype=Ks.dtype, device=Ks.device)
-    lam_t, qt = eigh_safe(Kt)
-    lam_t = torch.clamp(lam_t, min=0.0)
-    qs, lam_s, noise, logdet_offset = _spatial_factors(
-        Ks, sig2n, lam_t.shape[-1], het_exact
-    )
-    d = lam_s[..., :, None] * lam_t[..., None, :] + noise
+    with span("gpcsd.kronlik.comp_eig_d"):
+        sig2n = torch.as_tensor(sig2n, dtype=Ks.dtype, device=Ks.device)
+        lam_t, qt = eigh_safe(Kt)
+        lam_t = torch.clamp(lam_t, min=0.0)
+        qs, lam_s, noise, logdet_offset = _spatial_factors(
+            Ks, sig2n, lam_t.shape[-1], het_exact
+        )
+        d = lam_s[..., :, None] * lam_t[..., None, :] + noise
     return KronFactors(
         qs=qs, qt=qt, lam_s=lam_s, lam_t=lam_t, d=d, logdet_offset=logdet_offset
     )
@@ -180,13 +188,14 @@ def quad_term(factors: KronFactors, Y):
     its own (``quadform_rows`` batches trials that share them)."""
     nx, nt = Y.shape[-2:]
     Yb = Y.reshape(-1, nx, nt).contiguous()
-    dinv = 1.0 / factors.d
-    if dinv.ndim == 2:
-        return quadform(factors.qs.contiguous(), factors.qt.contiguous(), dinv.contiguous(), Yb)
-    return torch.stack([
-        quadform(qs.contiguous(), qt.contiguous(), di.contiguous(), Yb)
-        for qs, qt, di in zip(factors.qs, factors.qt, dinv)
-    ])
+    with span("gpcsd.kronlik.quad_term"):
+        dinv = 1.0 / factors.d
+        if dinv.ndim == 2:
+            return quadform(factors.qs.contiguous(), factors.qt.contiguous(), dinv.contiguous(), Yb)
+        return torch.stack([
+            quadform(qs.contiguous(), qt.contiguous(), di.contiguous(), Yb)
+            for qs, qt, di in zip(factors.qs, factors.qt, dinv)
+        ])
 
 
 def loglik(factors: KronFactors, Y, ntrials=None):

@@ -2,7 +2,8 @@
 the log-joint (single and batched, 1D and 2D), ``predict``, ``sample_posterior``, the batched
 L-BFGS ``fit``, and the analysis stages (``signal``, ``torus_graph_fit`` and
 its bootstrap, ``estimate_shifts``) on CUDA, against their plain versions
-and the CPU.
+and the CPU; the program's host-sync counters against the syncs CUDA
+reports, and its spans over the kernels they hold.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them.  The
 card has no JAX and ``tests/conftest.py`` imports it, so run this file
@@ -321,3 +322,114 @@ def test_estimate_shifts_cuda_matches_cpu(monkeypatch):
     rc = estimate_shifts(lfp, np.zeros((nx, nt)), mu, np.arange(nt) * 1.0, fc, maxiter=30, device="cpu")
     assert np.abs(rg.tau - rc.tau).max() <= 1e-6
     assert np.array_equal(rg.converged, rc.converged)
+
+
+# ---- the program's host-sync counters and spans on the card
+
+
+def sync_windows(run):
+    """Call ``run(mark)`` under ``torch.cuda.set_sync_debug_mode("warn")``,
+    where ``run`` calls ``mark()`` at the boundaries of the windows to
+    compare.  Returns, per window between two marks, (the syncs CUDA
+    reported, the change of the program's ``host_sync.*`` counters)."""
+    import warnings
+
+    from gpcsd_tpu_torch.utils import profiling
+
+    marks = []
+    with warnings.catch_warnings(record=True) as ws:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run(lambda: marks.append(
+                (sum("synchroniz" in str(w.message) for w in ws), profiling.counters())))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    out = []
+    for (n0, c0), (n1, c1) in zip(marks[:-1], marks[1:]):
+        counted = sum(v - c0.get(k, 0) for k, v in c1.items() if k.startswith("host_sync."))
+        out.append((n1 - n0, counted))
+    return out
+
+
+@pytest.mark.parametrize("models", [small_models, small_models_2d], ids=["1d", "2d"])
+def test_host_sync_counters_match_cuda_over_transitions(models):
+    """Over each NUTS transition (warm-up with the step-size guard, and
+    sampling), the syncs ``set_sync_debug_mode`` reports equal the change of
+    the program's ``host_sync.*`` counters."""
+    m = models()[0]
+    windows = sync_windows(lambda mark: m.sample_posterior(
+        n_chains=4, num_warmup=4, num_samples=3, seed=7, max_depth=4,
+        callback=lambda i, carry: mark()))
+    assert len(windows) == 6
+    for reported, counted in windows:
+        assert reported == counted > 0
+
+
+def test_host_sync_counters_match_cuda_over_lbfgs_iterations(monkeypatch):
+    """Over each L-BFGS iteration (from one two-loop recursion to the next),
+    the syncs ``set_sync_debug_mode`` reports equal the change of the
+    program's ``host_sync.*`` counters."""
+    from gpcsd_tpu_torch.infer import lbfgs
+
+    m = small_models()[0]
+    two_loop = lbfgs._two_loop
+    marker = {}
+
+    def marked(*args):
+        marker["mark"]()
+        return two_loop(*args)
+
+    monkeypatch.setattr(lbfgs, "_two_loop", marked)
+
+    def run(mark):
+        marker["mark"] = mark
+        m.fit(n_restarts=3, seed=0, options={"maxiter": 6})
+
+    windows = sync_windows(run)
+    assert len(windows) >= 3
+    for reported, counted in windows:
+        assert reported == counted > 0
+
+
+def test_profiled_transition_puts_the_kernels_under_their_spans():
+    """One profiled transition at the auditory shape (the benchmark's slice
+    reduction): the device time under ``gpcsd.kronlik.quad_term`` holds the
+    quadform kernels' own (and not twice it), and the time under
+    ``gpcsd.kronlik.comp_eig_d`` the forward ``eigh``s'."""
+    import os
+
+    from benchmark.trace import Slice
+    from gpcsd_tpu_torch import paper
+    from torch.autograd import DeviceType
+
+    dev = torch.device("cuda")
+    lfp, time_ms, _ = paper.paper_surrogate(0, 1200, 100, device=dev)
+    m = paper.build_model(lfp, time_ms, het_noise="exact", device=dev)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    banked = np.load(os.path.join(root, "results", "paper_nuts_hetx", "posterior_samples.npz"))
+    fns = m._fns()
+    u = torch.tensor(banked["raw_u"].reshape(-1, 30).mean(axis=0), device=dev)
+    m._set_theta(fns.full_theta(fns.param_set.unpack(u)))
+    sl = Slice(dev)
+
+    def callback(i, carry):
+        if i == 2:
+            sl.start()
+        elif i == 3:
+            sl.stop()
+
+    m.sample_posterior(n_chains=4, num_warmup=3, num_samples=1, seed=3, max_depth=3,
+                       callback=callback)
+    s = sl.summary()
+    kernels = sum(e.time_range.elapsed_us() * 1e-6 for e in sl.done.events()
+                  if e.device_type == DeviceType.CUDA and any(
+                      k in e.name for k in ("whiten_rows_kernel", "quadform_gemm_kernel",
+                                            "sum_partials_kernel")))
+    quad = s["op_device_s"]["gpcsd.kronlik.quad_term"]
+    factor = s["op_device_s"]["gpcsd.kronlik.comp_eig_d"]
+    print(f"quad_term {quad:.6f} s over its kernels {kernels:.6f} s; comp_eig_d {factor:.6f} s "
+          f"over aten::linalg_eigh {s['op_device_s']['aten::linalg_eigh']:.6f} s")
+    assert 0 < kernels <= quad <= 2 * kernels
+    assert factor >= s["op_device_s"]["aten::linalg_eigh"] > 0
