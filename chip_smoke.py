@@ -1898,6 +1898,7 @@ def _parallel_rank_cases(rank, device, init_file, lfp, time_ms, us):
     from gpcsd_tpu_torch.infer.advi import advi_fit
     from gpcsd_tpu_torch.infer.lbfgs import lbfgs_minimize
     from gpcsd_tpu_torch.infer.map import sample_restarts
+    from gpcsd_tpu_torch.models import pass_graphs
     from gpcsd_tpu_torch.infer.nuts import chain_generators, nuts_chains
     from gpcsd_tpu_torch.infer.smc import smc_run
     from gpcsd_tpu_torch.models.inference_api import prior_starts, stream_generator
@@ -1954,9 +1955,19 @@ def _parallel_rank_cases(rank, device, init_file, lfp, time_ms, us):
     lo, hi = fns.param_set.bounds()
     u0s = torch.as_tensor(sample_restarts(fns.param_set, np.random.default_rng(PAR_MAP["seed"]),
                                           PAR_MAP["n_restarts"]), device=dev)
+
     def lbfgs(u):
-        res = lbfgs_minimize(lambda x: -fns.log_prob(x, Y), u, lo=lo, hi=hi,
-                             max_iter=PAR_MAP["maxiter"], ftol=PAR_MAP["ftol"])
+        # the sharded log-prob runs the log-joint's eager arithmetic, so its
+        # twin does too: a pass through the CUDA graphs
+        # (models/pass_graphs.py) sums u's gradient in another order, and an
+        # L-BFGS path carries that last bit to ~5e-7 in the final NLL
+        eligible = pass_graphs.eligible
+        pass_graphs.eligible = lambda u: False
+        try:
+            res = lbfgs_minimize(lambda x: -fns.log_prob(x, Y), u, lo=lo, hi=hi,
+                                 max_iter=PAR_MAP["maxiter"], ftol=PAR_MAP["ftol"])
+        finally:
+            pass_graphs.eligible = eligible
         return torch.where(res.failed, torch.inf, res.f).cpu().numpy()
 
     with torch.no_grad():

@@ -15,7 +15,9 @@ with ``jax.vmap``, here the batch is written out: ``log_prob``,
 per factor and one quadform call per row: each row has its own factors,
 so the per-trial kernel (``quadform_rows``, one ``(qs, qt, dinv)`` for all
 its trials) does not apply here.
-:func:`value_and_grad_rows` differentiates all rows in one backward.
+:func:`value_and_grad_rows` differentiates all rows in one backward; on the
+card its passes of ``log_prob`` and ``neg_log_joint`` replay CUDA graphs
+around the eager factorization (:mod:`gpcsd_tpu_torch.models.pass_graphs`).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ..ops import kronlik
 from ..ops.kernels import TEMPORAL_KERNELS
 from ..ops.rff import rff_draws, se_rff_features
 from ..utils.profiling import count, pass_span, span
+from . import pass_graphs
 from .params import ParamSet
 
 
@@ -45,6 +48,7 @@ class ModelFns(NamedTuple):
     log_prob: Callable  # u, Y -> scalar  (posterior density in u-space)
     log_prior_u: Callable  # u -> scalar prior + jacobian (no likelihood)
     full_theta: Callable  # theta -> theta merged with fixed params
+    graphs: pass_graphs.PassGraphs  # the value+grad passes' CUDA graphs
 
 
 def temporal_param_names(n_components: int):
@@ -115,11 +119,40 @@ def make_model_fns(
         theta = param_set.unpack(u)
         return param_set.log_prior(theta) + fixed_log_prior + param_set.log_det_jacobian(u)
 
+    # the two halves of a pass that pass_graphs captures, around the eager
+    # eigh calls: the same ops as log_prob / neg_log_joint below, in their order
+    def inputs_half(u):
+        theta = full_theta(param_set.unpack(u))
+        Ks, Kt = build_ks(theta), build_kt(theta)
+        sig2n = torch.as_tensor(theta["sig2n"], dtype=Ks.dtype, device=Ks.device)
+        return kronlik.spatial_eigh_input(Ks, sig2n, het_exact), Kt
+
+    def factors_half(objective, ntrials, lam_t, lam_s, u, qs=None):
+        theta = param_set.unpack(u)
+        sig2n = torch.as_tensor(full_theta(theta)["sig2n"], dtype=u.dtype, device=u.device)
+        f = kronlik.factors_from_eigenpairs(lam_t, None, lam_s, qs, sig2n, het_exact)
+        prior = param_set.log_prior(theta)
+        if objective == "log_prob":
+            prior = prior + fixed_log_prior + param_set.log_det_jacobian(u)
+        out = (f.d, kronlik.logdet_term(f, ntrials), prior)
+        return out if qs is None else out + (f.qs,)
+
+    sig2n_spec = param_set.specs["sig2n"]
+    graphs = pass_graphs.PassGraphs(inputs_half, factors_half,
+                                    whitened=het_exact and sig2n_spec.size > 1,
+                                    fixed_log_prior=fixed_log_prior)
+
     def neg_log_joint(u, Y):
+        value = graphs.run("neg_log_joint", u, Y)
+        if value is not None:
+            return value
         theta = param_set.unpack(u)
         return -(loglik(theta, Y) + param_set.log_prior(theta) + fixed_log_prior)
 
     def log_prob(u, Y):
+        value = graphs.run("log_prob", u, Y)
+        if value is not None:
+            return value
         return loglik(param_set.unpack(u), Y) + log_prior_u(u)
 
     return ModelFns(
@@ -133,6 +166,7 @@ def make_model_fns(
         log_prob=log_prob,
         log_prior_u=log_prior_u,
         full_theta=full_theta,
+        graphs=graphs,
     )
 
 
@@ -146,7 +180,10 @@ def value_and_grad_rows(fn: Callable, u: torch.Tensor):
     Every batched pass of the program (the samplers, the optimizer, the
     Laplace Hessian, the shift stage) goes through here: it is counted
     (``pass.count``, ``pass.rows``) and traced (span ``gpcsd.pass``, its
-    backward's host interval ``gpcsd.pass.backward``).
+    backward's host interval ``gpcsd.pass.backward``).  On the card the
+    ``log_prob`` and ``neg_log_joint`` calls inside ``fn`` may replay CUDA
+    graphs (:mod:`gpcsd_tpu_torch.models.pass_graphs`); the results are
+    then copies, never a graph's buffers, which the next replay overwrites.
 
     :return: ``(values (C,), gradients (C, dim))``
     """
@@ -155,9 +192,12 @@ def value_and_grad_rows(fn: Callable, u: torch.Tensor):
     count("pass.rows", rows)
     with pass_span(rows):
         u = u.detach().requires_grad_(True)
-        f = fn(u)
+        with pass_graphs.engaged() as graphed:
+            f = fn(u)
         with span("gpcsd.pass.backward"):
             (g,) = torch.autograd.grad(f.sum(), u)
+    if graphed["replayed"]:
+        return f.detach().clone(), g.clone()
     return f.detach(), g
 
 

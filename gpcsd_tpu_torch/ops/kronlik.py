@@ -112,13 +112,20 @@ class KronFactors(NamedTuple):
     logdet_offset: torch.Tensor  # scalar
 
 
-def _spatial_factors(Ks, sig2n, nt, het_exact):
-    """Spatial eigenbasis + per-entry noise floor + logdet offset.
+def _whitened(sig2n, batch_ndim, het_exact):
+    """Whether the exact heteroscedastic path applies: ``het_exact`` and a
+    per-channel ``sig2n``, one axis more than the ``batch_ndim`` batch axes."""
+    return het_exact and sig2n.ndim > batch_ndim
 
-    ``het_exact=False`` reproduces the reference approximation for vector
-    sig2n (D built in the eigenbasis of Ks alone, reference
-    ``utility_functions.py:54-63``).  ``het_exact=True`` whitens by the
-    noise first: with ``S = diag(sig2n)``,
+
+def spatial_eigh_input(Ks, sig2n, het_exact: bool = False):
+    """The first half of :func:`comp_eig_d`: the matrix the spatial ``eigh``
+    factors.
+
+    ``het_exact=False`` gives ``Ks`` itself: with vector sig2n that is the
+    reference approximation (D built in the eigenbasis of Ks alone,
+    reference ``utility_functions.py:54-63``).  ``het_exact=True`` whitens
+    by the noise first: with ``S = diag(sig2n)``,
 
         K = (S^{1/2} (x) I)(S^{-1/2} Ks S^{-1/2} (x) Kt + I)(S^{1/2} (x) I)
 
@@ -127,26 +134,41 @@ def _spatial_factors(Ks, sig2n, nt, het_exact):
 
     ``Ks`` may be a batch ``(C, nx, nx)``; ``sig2n`` is then ``(C,)`` or
     ``(C, nx)``, and is per-channel when it has one axis more than the
-    batch.  ``noise`` comes back shaped to broadcast against ``(nx, nt)``.
+    batch.  The temporal ``eigh`` takes ``Kt`` as it is.
     """
-    per_channel = sig2n.ndim > Ks.ndim - 2
-    het = het_exact and per_channel
-    eigh_in = Ks
-    if het:
+    if _whitened(sig2n, Ks.ndim - 2, het_exact):
         s = torch.sqrt(sig2n)
-        eigh_in = Ks / (s[..., :, None] * s[..., None, :])
-    lam_s, qs = eigh_safe(eigh_in)
-    # PSD + jitter: numerically negative eigenvalues (quadrature-Gram
-    # roundoff) would push D below the noise floor and NaN the logdet
+        return Ks / (s[..., :, None] * s[..., None, :])
+    return Ks
+
+
+def factors_from_eigenpairs(lam_t, qt, lam_s, qs, sig2n, het_exact: bool = False) -> KronFactors:
+    """The second half of :func:`comp_eig_d`: the factors from the two
+    ``eigh`` results, ``(lam_t, qt)`` of ``Kt`` and ``(lam_s, qs)`` of
+    :func:`spatial_eigh_input`, with the same batch axes.
+
+    The eigenvalues are clamped at 0: PSD + jitter, numerically negative
+    eigenvalues (quadrature-Gram roundoff) would push D below the noise
+    floor and NaN the logdet.  On the whitened path ``qs`` is mapped back
+    by ``S^{-1/2}`` and ``logdet_offset`` carries ``nt * sum(log sig2n)``;
+    otherwise ``noise`` is shaped to broadcast against ``(nx, nt)``.  Only
+    the whitened path reads ``qs``, and neither reads ``qt``: either may be
+    None where the caller does not need it back.
+    """
+    lam_t = torch.clamp(lam_t, min=0.0)
     lam_s = torch.clamp(lam_s, min=0.0)
-    if het:
-        qs = qs / s[..., :, None]
-        noise = torch.ones((), dtype=Ks.dtype, device=Ks.device)
-        logdet_offset = nt * torch.sum(torch.log(sig2n), dim=-1)
+    batch = lam_s.shape[:-1]
+    if _whitened(sig2n, len(batch), het_exact):
+        qs = qs / torch.sqrt(sig2n)[..., :, None]
+        noise = torch.ones((), dtype=lam_s.dtype, device=lam_s.device)
+        logdet_offset = lam_t.shape[-1] * torch.sum(torch.log(sig2n), dim=-1)
     else:
-        noise = sig2n[..., None] if per_channel else sig2n[..., None, None]
-        logdet_offset = torch.zeros(Ks.shape[:-2], dtype=Ks.dtype, device=Ks.device)
-    return qs, lam_s, noise, logdet_offset
+        noise = sig2n[..., None] if sig2n.ndim > len(batch) else sig2n[..., None, None]
+        logdet_offset = torch.zeros(batch, dtype=lam_s.dtype, device=lam_s.device)
+    d = lam_s[..., :, None] * lam_t[..., None, :] + noise
+    return KronFactors(
+        qs=qs, qt=qt, lam_s=lam_s, lam_t=lam_t, d=d, logdet_offset=logdet_offset
+    )
 
 
 def comp_eig_d(Ks, Kt, sig2n, het_exact: bool = False) -> KronFactors:
@@ -155,7 +177,8 @@ def comp_eig_d(Ks, Kt, sig2n, het_exact: bool = False) -> KronFactors:
 
     Matches reference ``comp_eig_D`` with D laid out (nx, nt): its flat
     ``Dvec = repeat(lam_s, nt) * tile(lam_t, nx) + sig2n`` is row-major
-    (nx, nt).
+    (nx, nt).  The composition of :func:`spatial_eigh_input`, the two
+    :func:`eigh_safe` calls and :func:`factors_from_eigenpairs`.
 
     :param het_exact: with vector sig2n, use the exact noise-whitened
         factorization instead of the reference's approximation; no-op for
@@ -163,15 +186,10 @@ def comp_eig_d(Ks, Kt, sig2n, het_exact: bool = False) -> KronFactors:
     """
     with span("gpcsd.kronlik.comp_eig_d"):
         sig2n = torch.as_tensor(sig2n, dtype=Ks.dtype, device=Ks.device)
+        eigh_in = spatial_eigh_input(Ks, sig2n, het_exact)
         lam_t, qt = eigh_safe(Kt)
-        lam_t = torch.clamp(lam_t, min=0.0)
-        qs, lam_s, noise, logdet_offset = _spatial_factors(
-            Ks, sig2n, lam_t.shape[-1], het_exact
-        )
-        d = lam_s[..., :, None] * lam_t[..., None, :] + noise
-    return KronFactors(
-        qs=qs, qt=qt, lam_s=lam_s, lam_t=lam_t, d=d, logdet_offset=logdet_offset
-    )
+        lam_s, qs = eigh_safe(eigh_in)
+        return factors_from_eigenpairs(lam_t, qt, lam_s, qs, sig2n, het_exact)
 
 
 def whiten(factors: KronFactors, Y):
@@ -210,8 +228,13 @@ def loglik(factors: KronFactors, Y, ntrials=None):
     """
     if ntrials is None:
         ntrials = Y[..., 0, 0].numel()
-    logdet = ntrials * (torch.sum(torch.log(factors.d), dim=(-2, -1)) + factors.logdet_offset)
-    return -0.5 * (logdet + quad_term(factors, Y))
+    return -0.5 * (logdet_term(factors, ntrials) + quad_term(factors, Y))
+
+
+def logdet_term(factors: KronFactors, ntrials):
+    """``ntrials * log|K|``, the log-determinant term of :func:`loglik`;
+    batched factors ``(C, ...)`` give ``(C,)``."""
+    return ntrials * (torch.sum(torch.log(factors.d), dim=(-2, -1)) + factors.logdet_offset)
 
 
 def kron_solve(factors: KronFactors, Y):

@@ -22,10 +22,14 @@ from gpcsd_tpu_torch.ops.cuda import quadform as qf
 pytestmark = pytest.mark.cuda
 
 
-@pytest.fixture(autouse=True)
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (and nvcc to build the kernel)")
+
+
+@pytest.fixture(autouse=True)
+def _needs_card():
+    _card()
 
 
 def inputs(seed, nx, nt, ntrials):
@@ -433,3 +437,249 @@ def test_profiled_transition_puts_the_kernels_under_their_spans():
           f"over aten::linalg_eigh {s['op_device_s']['aten::linalg_eigh']:.6f} s")
     assert 0 < kernels <= quad <= 2 * kernels
     assert factor >= s["op_device_s"]["aten::linalg_eigh"] > 0
+
+
+# ---- the log-joint pass through CUDA graphs
+
+#: gradient of a pass through the halves (eager or replayed) against the plain
+#: log-joint's, relative in the 2-norm: each half returns u's gradient summed
+#: inside it, where the plain backward adds u's partial gradients in another
+#: order (the CPU reads ~2e-16 for the same two orders)
+GRAPH_GRAD_RTOL = 1e-12
+
+
+@pytest.fixture(scope="module")
+def auditory():
+    """The paper's auditory model (24 sites, 600 samples, 100 trials, exact
+    per-channel noise: 30 parameters) at the banked posterior's mean."""
+    import os
+
+    _card()
+
+    from gpcsd_tpu_torch import paper
+
+    dev = torch.device("cuda")
+    lfp, time_ms, _ = paper.paper_surrogate(0, 1200, 100, device=dev)
+    m = paper.build_model(lfp, time_ms, het_noise="exact", device=dev)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    banked = np.load(os.path.join(root, "results", "paper_nuts_hetx", "posterior_samples.npz"))
+    fns = m._fns()
+    u = torch.tensor(banked["raw_u"].reshape(-1, 30).mean(axis=0), device=dev)
+    m._set_theta(fns.full_theta(fns.param_set.unpack(u)))
+    return m
+
+
+@pytest.fixture(scope="module")
+def neuropixels():
+    """The Neuropixels model (69 sites, 375 samples, 100 trials, a 30 x 120
+    rule, scalar noise: 8 parameters) at its fixed point."""
+    from gpcsd_tpu_torch import paper
+
+    _card()
+
+    return paper.neuropixels_problem(device="cuda")
+
+
+def fresh_fns(m):
+    """The model's functions built anew: no graph captured, no key seen."""
+    m._fns_cache.clear()
+    return m._fns()
+
+
+def graph_counts():
+    from gpcsd_tpu_torch.utils import profiling
+
+    c = profiling.counters()
+    return np.array([c.get(f"graph.{k}", 0) for k in ("eager", "capture", "replay")])
+
+
+def rows_near(m, fns, rows, seed, scale=0.05):
+    u0 = fns.param_set.pack(m._theta()).to("cuda")
+    return u0 + scale * torch.tensor(np.random.default_rng(seed).normal(size=(rows, u0.numel())),
+                                     device="cuda")
+
+
+def eager_value_and_grad(fn, u):
+    """The value and gradient of ``fn`` by plain autograd, outside a pass."""
+    u = u.clone().requires_grad_()
+    f = fn(u)
+    (g,) = torch.autograd.grad(f.sum(), u)
+    return f.detach(), g
+
+
+@pytest.mark.parametrize("which,objective,row_counts", [
+    ("auditory", "log_prob", (1, 3, 4)),
+    ("neuropixels", "log_prob", (1, 3, 4)),
+    ("auditory", "neg_log_joint", tuple(range(1, 11))),
+])
+def test_graphed_pass_matches_eager(request, which, objective, row_counts):
+    """At each row count three passes at distinct points: the first runs
+    eagerly, the second captures, the third replays.  Each pass's values
+    equal the plain log-joint's bit for bit and its gradient agrees to
+    GRAPH_GRAD_RTOL in norm; a later pass leaves an earlier one's results
+    as they were (they are copies, not the graph's buffers); and a fourth
+    pass, replayed at the first one's rows, gives that eager pass's values
+    and gradients bit for bit."""
+    from gpcsd_tpu_torch.models.core import value_and_grad_rows
+
+    m = request.getfixturevalue(which)
+    fns, Y = fresh_fns(m), m._Y()
+    fn = lambda u: getattr(fns, objective)(u, Y)  # noqa: E731
+    worst = 0.0
+    for rows in row_counts:
+        points = [rows_near(m, fns, rows, seed=10 * rows + k) for k in range(3)]
+        before = graph_counts()
+        results, kept = [], []
+        for u in points:
+            v, g = value_and_grad_rows(fn, u)
+            results.append((v, g))
+            kept.append((v.clone(), g.clone()))
+        v, g = value_and_grad_rows(fn, points[0])
+        assert torch.equal(v, kept[0][0]) and torch.equal(g, kept[0][1])
+        assert list(graph_counts() - before) == [1, 1, 3]
+        for u, (v, g), (kv, kg) in zip(points, results, kept):
+            assert torch.equal(v, kv) and torch.equal(g, kg)
+            ve, ge = eager_value_and_grad(fn, u)
+            assert torch.equal(v, ve)
+            err = float((g - ge).norm() / ge.norm())
+            worst = max(worst, err)
+            assert err <= GRAPH_GRAD_RTOL, (rows, err)
+    print(f"{which} {objective}: graphed gradient against eager, worst {worst:.3e}")
+
+
+def test_a_key_seen_once_stays_eager(auditory):
+    """A row count seen once runs eagerly and captures nothing; the second
+    pass at it captures."""
+    from gpcsd_tpu_torch.models.core import value_and_grad_rows
+
+    fns, Y = fresh_fns(auditory), auditory._Y()
+    fn = lambda u: fns.log_prob(u, Y)  # noqa: E731
+    before = graph_counts()
+    value_and_grad_rows(fn, rows_near(auditory, fns, 5, seed=1))
+    value_and_grad_rows(fn, rows_near(auditory, fns, 6, seed=2))
+    assert list(graph_counts() - before) == [2, 0, 0] and len(fns.graphs) == 2
+    value_and_grad_rows(fn, rows_near(auditory, fns, 5, seed=3))
+    assert list(graph_counts() - before) == [2, 1, 1]
+
+
+def test_graphed_pass_keeps_a_non_finite_row_to_itself(auditory):
+    """A row whose temporal Gram is not finite (its SE variance overflows)
+    gives a non-finite density in a replayed pass, as eagerly, and the other
+    rows' values and gradients are the eager pass's."""
+    from gpcsd_tpu_torch.models.core import value_and_grad_rows
+
+    fns, Y = fresh_fns(auditory), auditory._Y()
+    fn = lambda u: fns.log_prob(u, Y)  # noqa: E731
+    for seed in (1, 2):
+        value_and_grad_rows(fn, rows_near(auditory, fns, 4, seed=seed))
+    u = rows_near(auditory, fns, 4, seed=3)
+    u[2, fns.param_set.names_flat().index("tm0_sigma2")] = 800.0
+    before = graph_counts()
+    v, g = value_and_grad_rows(fn, u)
+    assert list(graph_counts() - before) == [0, 0, 1]
+    ve, ge = eager_value_and_grad(fn, u)
+    finite = torch.isfinite(v)
+    assert finite.tolist() == [True, True, False, True] == torch.isfinite(ve).tolist()
+    assert torch.equal(v[finite], ve[finite])
+    assert torch.isfinite(g[finite]).all()
+    assert float((g[finite] - ge[finite]).norm() / ge[finite].norm()) <= GRAPH_GRAD_RTOL
+
+
+def test_host_sync_counters_match_cuda_over_graphed_passes(auditory):
+    """Over each pass at one row count (eager, capture, replays), the syncs
+    ``set_sync_debug_mode`` reports equal the change of the program's
+    ``host_sync.*`` counters; a replayed pass syncs only in its two ``eigh``s."""
+    from gpcsd_tpu_torch.models.core import value_and_grad_rows
+
+    fns, Y = fresh_fns(auditory), auditory._Y()
+    points = [rows_near(auditory, fns, 4, seed=s) for s in range(4)]
+
+    def run(mark):
+        mark()
+        for u in points:
+            value_and_grad_rows(lambda x: fns.log_prob(x, Y), u)
+            mark()
+
+    before = graph_counts()
+    windows = sync_windows(run)
+    assert list(graph_counts() - before) == [1, 1, 3]
+    assert [counted for _, counted in windows] == [2, 2, 2, 2]
+    for reported, counted in windows:
+        assert reported == counted
+
+
+def test_resumed_fit_repeats_the_uninterrupted_one_through_graphs(auditory):
+    """A fit stopped at every checkpoint and rerun gives the uninterrupted
+    fit bit for bit although their passes meet the graphs' cache in another
+    state (eager first sightings in one, replays in the other): a pass gives
+    the same bits eager and replayed, at the optimizer's restart points too."""
+    import os
+    import shutil
+    import tempfile
+
+    from gpcsd_tpu_torch.infer.lbfgs import LBFGSTimeBudget
+
+    fresh_fns(auditory)
+    before = graph_counts()
+    whole = auditory.fit(n_restarts=3, seed=0, options={"maxiter": 12})
+    tmp = tempfile.mkdtemp(prefix="resume_")
+    opts = {"maxiter": 12, "chunk_iters": 3, "max_wall_seconds": 0,
+            "state_path": os.path.join(tmp, "map_state")}
+    try:
+        for _ in range(12):
+            try:
+                res = auditory.fit(n_restarts=3, seed=0, options=opts)
+                break
+            except LBFGSTimeBudget:
+                pass
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    eager, capture, replay = graph_counts() - before
+    assert eager > 0 and capture > 0 and replay > eager
+    assert np.array_equal(res.u_all, whole.u_all)
+    assert np.array_equal(res.nll_values, whole.nll_values)
+    assert np.array_equal(res.n_evals, whole.n_evals)
+
+
+def test_graphs_of_many_row_counts_share_their_memory(neuropixels):
+    """Six row counts of the Neuropixels objective captured from the largest
+    down (as an optimizer's restarts drop out): the card memory the graphs
+    keep (reserved after ``empty_cache``, so the eager cache is not counted)
+    stays within twice one eager pass's working set at the largest, where a
+    pool a key would keep the sum over the keys.  Captured from the smallest
+    up, each capture needs larger blocks than the ones freed before it, and
+    the shared pool keeps up to that sum (within a quarter, for the
+    allocator's rounding), but not more."""
+    from gpcsd_tpu_torch.models.core import value_and_grad_rows
+
+    Y = neuropixels._Y()
+    working_sets = {}
+    for rows in range(1, 7):
+        fns = fresh_fns(neuropixels)
+        fn = lambda u: fns.neg_log_joint(u, Y)  # noqa: E731
+        torch.cuda.synchronize()
+        allocated0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eager_value_and_grad(fn, rows_near(neuropixels, fns, rows, seed=0))
+        working_sets[rows] = torch.cuda.max_memory_allocated() - allocated0
+    kept = {}
+    for order in (range(6, 0, -1), range(1, 7)):
+        fns = fresh_fns(neuropixels)
+        fn = lambda u: fns.neg_log_joint(u, Y)  # noqa: E731
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        before = graph_counts()
+        for rows in order:
+            for k in range(3):
+                value_and_grad_rows(fn, rows_near(neuropixels, fns, rows, seed=10 * rows + k))
+        assert list(graph_counts() - before) == [6, 6, 12]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        kept[order.start] = torch.cuda.memory_reserved() - reserved0
+    total = sum(working_sets.values())
+    print(f"graphs of 6 row counts keep {kept[6] / 1e9:.3f} GB captured downward, "
+          f"{kept[1] / 1e9:.3f} GB upward; eager working sets {working_sets[6] / 1e9:.3f} GB "
+          f"at 6 rows, {total / 1e9:.3f} GB summed over 1-6")
+    assert kept[6] <= 2 * working_sets[6]
+    assert kept[1] <= 1.25 * total

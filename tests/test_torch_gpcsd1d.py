@@ -270,6 +270,37 @@ def test_log_joint_matches_jax_at_bench_point(fn):
         assert np.linalg.norm(gr - g_want) <= 1e-6 * np.linalg.norm(g_want)
 
 
+@pytest.mark.parametrize("het_noise", ["exact", "approx"])
+def test_pass_halves_compose_to_the_log_joint(het_noise):
+    """On the CPU, for a batch of 3 rows of a per-channel-noise model: the
+    two halves a graphed pass replays on the card (``ModelFns.graphs``, run
+    plain) around the eager eigh calls and quadratic term give each
+    objective's values bit for bit and its gradient to 1e-13 in norm
+    (autograd adds u's partial gradients in another order; ~2e-16 read);
+    and ``value_and_grad_rows`` runs no graph here: it counts no
+    ``graph.*`` event and returns plain autograd's results bit for bit."""
+    from gpcsd_tpu_torch.models.core import value_and_grad_rows
+    from gpcsd_tpu_torch.utils import profiling
+
+    tm = port_of(small_jax_model(het=True, het_noise=het_noise))
+    fns, Y = tm._fns(), tm._Y()
+    assert fns.graphs.whitened == (het_noise == "exact")
+    u0 = fns.param_set.pack(tm._theta())
+    us = u0 + 0.05 * torch.tensor(np.random.default_rng(4).normal(size=(3, u0.numel())))
+    for objective in ("log_prob", "neg_log_joint"):
+        fn = getattr(fns, objective)
+        ua, ub = us.clone().requires_grad_(), us.clone().requires_grad_()
+        va, vb = fn(ua, Y), fns.graphs.evaluate(objective, ub, Y)
+        (ga,), (gb,) = torch.autograd.grad(va.sum(), ua), torch.autograd.grad(vb.sum(), ub)
+        assert torch.equal(va, vb)
+        assert float((ga - gb).norm()) <= 1e-13 * float(ga.norm())
+        before = profiling.counters()
+        v, g = value_and_grad_rows(lambda u: fn(u, Y), us)
+        after = profiling.counters()
+        assert not [k for k in after if k.startswith("graph.") and after[k] != before.get(k)]
+        assert torch.equal(v, va.detach()) and torch.equal(g, ga)
+
+
 @pytest.fixture(scope="module")
 def paper_case():
     lfp, time_ms, _ = paper.paper_surrogate(0, 1200, 100, device="cpu")

@@ -281,6 +281,24 @@ class TestGPCSD2D:
             assert float(f.detach()) == pytest.approx(float(tv[i]), rel=1e-12)
             assert float((gi - tg[i]).norm()) <= 1e-9 * float(gi.norm())
 
+    def test_pass_halves_compose_to_the_log_joint(self, pair):
+        """On the CPU, for 3 rows: the two halves a graphed pass replays on
+        the card (run plain) around the eager eigh calls and quadratic term
+        give each objective's values bit for bit and its gradient to 1e-13
+        in norm (autograd adds u's partial gradients in another order)."""
+        _, tm = pair
+        fns, Y = tm._fns(), tm._Y()
+        assert fns.graphs.whitened == (tm.het_noise == "exact" and tm._sig2n_is_vector)
+        u0 = fns.param_set.pack(tm._theta())
+        us = u0 + 0.05 * torch.tensor(np.random.default_rng(4).normal(size=(3, u0.numel())))
+        for objective in ("log_prob", "neg_log_joint"):
+            ua, ub = us.clone().requires_grad_(), us.clone().requires_grad_()
+            va = getattr(fns, objective)(ua, Y)
+            vb = fns.graphs.evaluate(objective, ub, Y)
+            (ga,), (gb,) = torch.autograd.grad(va.sum(), ua), torch.autograd.grad(vb.sum(), ub)
+            assert torch.equal(va, vb)
+            assert float((ga - gb).norm()) <= 1e-13 * float(ga.norm())
+
     def test_log_prob_matches_jax(self, pair):
         jm, tm = pair
         u = np.array(jm._fns().param_set.pack(jm._theta())) + 0.02

@@ -91,6 +91,23 @@ class TestLoglik:
                 rtol=1e-12, atol=1e-15, err_msg=name,
             )
 
+    def test_halves_compose_to_comp_eig_d(self, het, het_exact):
+        """spatial_eigh_input, the two eigh_safe calls and
+        factors_from_eigenpairs give comp_eig_d's factors bit for bit, for
+        one pair of matrices and for a batch of 3 (the halves a graphed pass
+        replays around its eager eigh calls)."""
+        one = [t64(a) for a in problem(2, het=het)[:3]]
+        batch = [torch.stack(c) for c in zip(*[[t64(a) for a in problem(s, het=het)[:3]]
+                                               for s in (3, 4, 5)])]
+        for Ks, Kt, sig2n in (one, batch):
+            want = tk.comp_eig_d(Ks, Kt, sig2n, het_exact=het_exact)
+            lam_t, qt = tk.eigh_safe(Kt)
+            lam_s, qs = tk.eigh_safe(tk.spatial_eigh_input(Ks, sig2n, het_exact))
+            got = tk.factors_from_eigenpairs(lam_t, qt, lam_s, qs, sig2n, het_exact)
+            for name in tk.KronFactors._fields:
+                assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert want.d.shape == (3, 6, 14)
+
     def test_value_and_grad_match_jax(self, het, het_exact):
         """Value rtol 1e-12 (f64, same algorithm); gradients w.r.t. Ks, Kt
         and sig2n through both eighs at rtol 1e-8 (gap conditioning of the
