@@ -11,6 +11,16 @@ the traffic mix ``traffic/<mix>.json`` (whose ``engine`` names the driver
 and one reader ``metrics/<metric>.py`` per per-layer metric.  The plain
 reference that decides ``correct`` is ``reference/``; it imports nothing of
 the program.
+
+A configuration of a new family, with a new engine, is added as files and
+appended entries alone: its file, its family's code (``make_data``,
+``build_program``, ``reference_problem``, and where its readers need them
+``shape`` and ``row_eval_flops``), its CPU tests' sizes
+``configs/<config>.small.json``, the driver (``prepare``, ``run``,
+``readings``, and ``plant`` for its faults, :mod:`benchmark.faults`), the
+mix, the limits and the readers; then its entries in ``BENCHMARK.json``
+and its cell's name in the ``workloads`` of the end-to-end metric it
+reports.
 """
 
 import time

@@ -106,14 +106,6 @@ def build_program(cfg, data, device):
     return m
 
 
-def program_covariances(model, device):
-    """``(Ks, Kt, sig2n)`` of the program's model at its current values, by
-    its public covariance objects (the LFP jitter left out)."""
-    Ks = model.spatial_cov.compKphi_1d(model.R["value"], device=device)
-    Kt = sum(tc.compute_Kt(device=device) for tc in model.temporal_cov_list)
-    return Ks, Kt, torch.as_tensor(np.asarray(model.sig2n["value"], dtype=np.float64), device=device)
-
-
 def reference_problem(cfg, data, dtype, device):
     """The plain reference's :class:`~benchmark.reference.gpcsd.Problem` of ``data``."""
     _, _, gl_x, gl_w = geometry(cfg)

@@ -90,14 +90,6 @@ def build_program(cfg, data, device):
     return m
 
 
-def program_covariances(model, device):
-    """``(Ks, Kt, sig2n)`` of the program's model at its current values, by
-    its public covariance objects (the LFP jitter left out)."""
-    Ks = model.spatial_cov.compKphi_2d(model.R["value"], model.eps, device=device)
-    Kt = sum(tc.compute_Kt(device=device) for tc in model.temporal_cov_list)
-    return Ks, Kt, torch.as_tensor(float(model.sig2n["value"]), dtype=F64, device=device)
-
-
 def reference_problem(cfg, data, dtype, device):
     """The plain reference's :class:`~benchmark.reference.gpcsd.Problem` of ``data``."""
     _, _, _, gl_xy, gl_w = geometry(cfg)

@@ -43,7 +43,7 @@ def main(argv=None) -> int:
         return 2
     cell = Bench(Path.cwd()).cell(args.workload)
     for seed in args.seeds:
-        plant = (faults.planted(args.fault, cell.mix["engine"]) if args.fault
+        plant = (faults.planted(args.fault, cell.mix["engine"], cell.driver) if args.fault
                  else contextlib.nullcontext())
         with plant:
             r = run_cell(cell, seed, args.seconds, False,

@@ -1,7 +1,10 @@
 """Faults planted in the program under test, to show that ``correct`` catches
 them (the tests, and :mod:`benchmark.control` for the readings on the card).
 
-Each is a context manager that swaps one of the program's functions:
+A mix's driver may define ``plant(name)``, a context manager that plants
+fault ``name`` for its own engine; :func:`planted` uses it where it is
+defined.  Otherwise, for the ``nuts`` and ``map`` engines, each fault is a
+context manager that swaps one of the program's functions:
 
 - ``unchanged``: a step returns its state unchanged (a NUTS transition
   returns its start; L-BFGS makes no iteration, so a fit returns its starts);
@@ -9,6 +12,11 @@ Each is a context manager that swaps one of the program's functions:
   the quadratic term's mean over the rest (twice their sum);
 - ``altered``: the quadratic term is altered where it is produced (by a
   relative 1e-3).
+
+``half_batch`` and ``altered`` swap ``kronlik.quad_term``, which every path
+of the log-likelihood calls: ``kronlik.loglik`` on the CPU, and the card's
+CUDA-graph pass (``models.pass_graphs``), which computes the log-likelihood
+around it without ``kronlik.loglik``.
 """
 
 from __future__ import annotations
@@ -47,14 +55,9 @@ def _no_iterations(old):
 
 
 def _half_batch(old):
-    def loglik(factors, Y, ntrials=None):
-        from gpcsd_tpu_torch.ops import kronlik
-
-        T = Y[..., 0, 0].numel() if ntrials is None else ntrials
-        half = Y[: Y.shape[0] // 2]
-        logdet = T * (torch.sum(torch.log(factors.d), dim=(-2, -1)) + factors.logdet_offset)
-        return -0.5 * (logdet + 2.0 * kronlik.quad_term(factors, half))
-    return loglik
+    def quad_term(factors, Y):
+        return 2.0 * old(factors, Y[: Y.shape[0] // 2])
+    return quad_term
 
 
 def _altered(old):
@@ -64,8 +67,17 @@ def _altered(old):
 
 
 @contextlib.contextmanager
-def planted(name, engine):
-    """Plant fault ``name`` for a mix of ``engine`` (``"nuts"`` or ``"map"``)."""
+def planted(name, engine, driver=None):
+    """Plant fault ``name`` for a mix of ``engine``: by ``driver.plant(name)``
+    where the mix's driver defines it, else by the swaps above for ``"nuts"``
+    and ``"map"``; raises ValueError for another engine."""
+    plant = getattr(driver, "plant", None)
+    if plant is not None:
+        with plant(name):
+            yield
+        return
+    if engine not in ("nuts", "map"):
+        raise ValueError(f"no fault {name!r} for engine {engine!r}: its driver defines no plant")
     from gpcsd_tpu_torch.infer import map as map_mod
     from gpcsd_tpu_torch.infer import nuts
     from gpcsd_tpu_torch.ops import kronlik
@@ -74,7 +86,7 @@ def planted(name, engine):
         swap = (_swap(nuts, "nuts_transition", _unchanged_transition) if engine == "nuts"
                 else _swap(map_mod, "lbfgs_minimize", _no_iterations))
     elif name == "half_batch":
-        swap = _swap(kronlik, "loglik", _half_batch)
+        swap = _swap(kronlik, "quad_term", _half_batch)
     elif name == "altered":
         swap = _swap(kronlik, "quad_term", _altered)
     else:

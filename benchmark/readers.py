@@ -1,21 +1,18 @@
 """The per-layer readers' arithmetic, shared by the files in ``metrics/``.
 
-Each reader takes the run's context (``counters`` of the window, the
-profiled ``slice`` summary and its row evaluations ``slice_evals``, the
-cell's ``shape`` and ``row_eval_flops``, and the program under test: its
-``model`` after the window, the run's ``data``, the configuration's
-``family`` module and the ``device``) and returns a number, or None where
-the run gives it nothing to read.  A share of a roofline or of a peak is
-never made 0 or clipped: a missing reading is None.
+Each reader takes the run's context (:class:`benchmark.run.Context`:
+``counters`` of the window, the profiled ``slice`` summary and its row
+evaluations ``slice_evals``, the cell's ``config``, ``shape`` and
+``row_eval_flops``, and the program under test: its ``model`` after the
+window, the run's ``data``, the configuration's ``family`` module and the
+``device``) and returns a number, or None where the run gives it nothing to
+read.  A share of a roofline or of a peak is never made 0 or clipped: a
+missing reading is None.
 """
 
 from __future__ import annotations
 
-import numpy as np
-import torch
-
 from benchmark import counts
-from benchmark.trace import device_time_s
 
 
 def leapfrogs_per_draw(ctx):
@@ -34,32 +31,6 @@ def row_evals_per_s(ctx):
     """Row evaluations per second of the window (its unprofiled part)."""
     c = ctx.counters
     return c["rate_evals"] / c["rate_s"] if c.get("rate_s", 0) > 0 and c["rate_evals"] > 0 else None
-
-
-def eigh_ms_per_eval(ctx):
-    """Device ms under the eigensolver's aten op per row evaluation of the profiled slice."""
-    s = ctx.slice
-    eigh_s = s["op_device_s"].get("aten::linalg_eigh") if s else None
-    if not eigh_s or not ctx.slice_evals:
-        return None
-    return 1e3 * eigh_s / ctx.slice_evals
-
-
-def quadform_roofline(ctx):
-    """The quadratic term's bound time over its measured device time, in %:
-    ``gpcsd_tpu_torch.ops.kronlik.quad_term`` at the cell's shape, on the
-    factors of the model's current point, timed by CUDA events (on the card
-    only)."""
-    if ctx.device.type != "cuda":
-        return None
-    from gpcsd_tpu_torch.ops import kronlik
-
-    Ks, Kt, sig2n = ctx.family.program_covariances(ctx.model, ctx.device)
-    factors = kronlik.comp_eig_d(Ks, Kt, sig2n, het_exact=ctx.model.het_noise == "exact")
-    Y = torch.as_tensor(np.ascontiguousarray(np.moveaxis(ctx.data.lfp, 2, 0)), device=ctx.device)
-    with torch.no_grad():
-        seconds = device_time_s(lambda: kronlik.quad_term(factors, Y), device=ctx.device)
-    return 100.0 * counts.quadform_bound_s(*ctx.shape) / seconds
 
 
 def step_mfu(ctx):

@@ -22,6 +22,7 @@ from __future__ import annotations
 from benchmark import T_IMPORT  # isort: skip  (the set-up clock starts here)
 
 import argparse
+import functools
 import gc
 import importlib.util
 import json
@@ -32,6 +33,8 @@ import sys
 import time
 from pathlib import Path
 from types import SimpleNamespace
+
+from benchmark import counts
 
 #: top-level module names no run may load (compared whole: the port's name
 #: starts with the JAX package's)
@@ -120,6 +123,27 @@ class Bench:
         )
 
 
+class Context(SimpleNamespace):
+    """What a per-layer reader reads (see :mod:`benchmark.readers`).
+
+    ``shape`` and ``row_eval_flops`` are the family's ``shape(cfg)`` and
+    ``row_eval_flops(cfg)`` where it defines them, else
+    :mod:`benchmark.counts`'s, worked out when a reader first reads them: a
+    family whose configuration has no GP sizes needs neither.
+    """
+
+    def _count(self, name):
+        return getattr(self.family, name, getattr(counts, name))(self.config)
+
+    @functools.cached_property
+    def shape(self):
+        return self._count("shape")
+
+    @functools.cached_property
+    def row_eval_flops(self):
+        return self._count("row_eval_flops")
+
+
 def _device_info(device):
     import torch
 
@@ -141,8 +165,6 @@ def run_cell(cell, seed, seconds, trace, device="cuda", control=None):
         ``program_readings``.
     """
     import torch
-
-    from benchmark import counts
 
     device = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -171,11 +193,9 @@ def run_cell(cell, seed, seconds, trace, device="cuda", control=None):
     else:
         summary = out.slice.summary() if out.slice is not None else None
         t_summary = time.perf_counter()
-        ctx = SimpleNamespace(
-            counters=out.counters, shape=counts.shape(cell.config),
-            row_eval_flops=counts.row_eval_flops(cell.config),
-            slice=summary, slice_evals=out.slice_evals,
-            family=cell.family, model=model, data=data, device=device,
+        ctx = Context(
+            counters=out.counters, slice=summary, slice_evals=out.slice_evals,
+            config=cell.config, family=cell.family, model=model, data=data, device=device,
         )
         for m, reader in cell.per_layer:
             value = reader.read(ctx)

@@ -1,5 +1,14 @@
 """Small configurations of the benchmark's cells for CPU tests, and a
-``Bench`` over a temporary root that holds them."""
+``Bench`` over a temporary root that holds them.
+
+A configuration's small sizes are the file ``configs/<name>.small.json``
+beside the harness's files (found as :class:`benchmark.run.Bench` finds
+them): the keys it changes in the configuration.  Its family may define
+``derive_small(cfg)``, which brings what the configuration derives from its
+sizes in line with them; a family without one gets
+:func:`params_from_program`, which needs a program with ``_fns`` and leaves
+the configuration as it is otherwise.
+"""
 
 from __future__ import annotations
 
@@ -13,22 +22,13 @@ from benchmark import run as harness
 REPO = Path(__file__).resolve().parents[2]
 PACKAGE = REPO / "benchmark"
 
-#: per configuration: sizes small enough for a CPU run of a few seconds
-SMALL = {
-    "auditory": {"nx": 8, "electrodes_um": [0.0, 700.0], "quadrature_um": [-200.0, 900.0],
-                 "ngl": 30, "surrogate_samples": 120, "nt": 60, "ntrials": 10},
-    "neuropixels": {"nx": 8, "ngl": [6, 10], "nt": 20, "ntrials": 3},
-}
 
-
-def small_config(name, **extra):
-    """The configuration ``name`` at its small sizes, with the bounds and
-    sizes of its ``params`` as the program's model derives them there."""
-    cfg = json.loads((PACKAGE / "configs" / f"{name}.json").read_text())
-    cfg.update(SMALL[name], **extra)
-    family = harness.load_module(PACKAGE / "configs" / f"{cfg['family']}.py", "family")
-    data = family.make_data(cfg, 0)
-    model = family.build_program(cfg, data, "cpu")
+def params_from_program(cfg, family):
+    """Set the sizes and bounds of ``cfg['params']`` as the family's program
+    derives them at the configuration's sizes (its ``_fns().param_set``)."""
+    model = family.build_program(cfg, family.make_data(cfg, 0), "cpu")
+    if not hasattr(model, "_fns"):
+        return
     ps = model._fns().param_set
     for p in cfg["params"]:
         s = ps.specs[p["name"]]
@@ -36,23 +36,40 @@ def small_config(name, **extra):
         p["lo"] = float(np.asarray(s.lo).reshape(-1)[0])
         hi = float(np.asarray(s.hi).reshape(-1)[0])
         p["hi"] = None if hi == float("inf") else hi
+
+
+def small_config(name, root=REPO, dirs=(), **extra):
+    """The configuration ``name`` of ``root``'s BENCHMARK.json at its small
+    sizes (``configs/<name>.small.json`` in ``dirs`` or the package), with
+    ``extra`` keys changed and its family's ``derive_small`` applied."""
+    src = harness.Bench(root, dirs=[*dirs, PACKAGE])
+    entry = next(c for c in src.spec["configs"] if c["name"] == name)
+    cfg = json.loads((Path(root) / entry["file"]).read_text())
+    cfg.update(json.loads(src.find("configs", name, ".small.json").read_text()), **extra)
+    family = harness.load_module(src.find("configs", cfg["family"], ".py"), "family")
+    derive = getattr(family, "derive_small", None)
+    if derive is not None:
+        derive(cfg)
+    else:
+        params_from_program(cfg, family)
     return cfg
 
 
-def small_bench(tmp_path, mixes=None, limits=None):
-    """A ``Bench`` at ``tmp_path`` whose BENCHMARK.json is the repository's
-    with every configuration at its small sizes; traffic mixes can be
-    overridden per name (``mixes``: name -> dict of keys to change), and
-    limits per workload."""
+def small_bench(tmp_path, mixes=None, limits=None, root=REPO, dirs=()):
+    """A ``Bench`` at ``tmp_path`` whose BENCHMARK.json is ``root``'s with
+    every configuration at its small sizes, over the harness's files in
+    ``dirs`` and the package; traffic mixes can be overridden per name
+    (``mixes``: name -> dict of keys to change), and limits per workload."""
     tmp_path = Path(tmp_path)
-    spec = json.loads((REPO / "BENCHMARK.json").read_text())
+    src = harness.Bench(root, dirs=[*dirs, PACKAGE])
+    spec = json.loads((Path(root) / "BENCHMARK.json").read_text())
     for c in spec["configs"]:
         path = tmp_path / "configs" / f"{c['name']}.json"
         path.parent.mkdir(parents=True, exist_ok=True)
-        path.write_text(json.dumps(small_config(c["name"])))
+        path.write_text(json.dumps(small_config(c["name"], root=root, dirs=dirs)))
         c["file"] = str(path.relative_to(tmp_path))
     for name, changes in (mixes or {}).items():
-        mix = json.loads((PACKAGE / "traffic" / f"{name}.json").read_text())
+        mix = json.loads(src.find("traffic", name, ".json").read_text())
         mix.update(changes)
         (tmp_path / "traffic").mkdir(exist_ok=True)
         (tmp_path / "traffic" / f"{name}.json").write_text(json.dumps(mix))
@@ -60,5 +77,4 @@ def small_bench(tmp_path, mixes=None, limits=None):
         (tmp_path / "limits").mkdir(exist_ok=True)
         (tmp_path / "limits" / f"{name}.json").write_text(json.dumps(lim))
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
-    return harness.Bench(tmp_path, dirs=[tmp_path, PACKAGE])
-
+    return harness.Bench(tmp_path, dirs=[tmp_path, *dirs, PACKAGE])

@@ -11,7 +11,8 @@ from benchmark import run as harness
 from benchmark.tests.helpers import small_bench
 
 MIXES = {"nuts-c4-d3": {"num_warmup": 3},
-         "map-r10": {"restarts": 4}}
+         "map-r10": {"restarts": 4},
+         "map-r20": {"restarts": 4}}
 
 
 @pytest.fixture(scope="module")
@@ -20,7 +21,8 @@ def bench(tmp_path_factory):
 
 
 @pytest.mark.parametrize("seed", [1, 2**31 + 3, 2**32 + 5])
-@pytest.mark.parametrize("workload", ["auditory-nuts", "neuropixels-nuts", "auditory-map"])
+@pytest.mark.parametrize("workload", ["auditory-nuts", "neuropixels-nuts", "auditory-map",
+                                      "neuropixels-map"])
 def test_control_fails_a_limit(bench, workload, seed):
     cell = bench.cell(workload)
     result = harness.run_cell(cell, seed, 1.0, False, device="cpu", control=torch.float32)

@@ -13,8 +13,9 @@ from benchmark import run as harness
 from benchmark.tests.helpers import small_bench
 
 MIXES = {"nuts-c4-d3": {"num_warmup": 3},
-         "map-r10": {"restarts": 4}}
-CELLS = ("auditory-nuts", "neuropixels-nuts", "auditory-map")
+         "map-r10": {"restarts": 4},
+         "map-r20": {"restarts": 4}}
+CELLS = ("auditory-nuts", "neuropixels-nuts", "auditory-map", "neuropixels-map")
 SEED = 2**31 + 99
 
 

@@ -1,5 +1,4 @@
-"""What a ``--trace 1`` run reads from the device: a profiled slice and the
-layer entry's device time.
+"""What a ``--trace 1`` run reads from the device: a profiled slice.
 
 :class:`Slice` wraps ``torch.profiler`` (CPU and CUDA activities) around a
 stretch of the program's own work and reduces it to the device's busy time
@@ -8,7 +7,7 @@ device time under each aten op (``key_averages``, children included, by the
 op's name), the ten device operations that took most
 time, and the ten host activities the device's idle gaps fell under (the
 innermost CPU-side op that spans each gap's middle, ``host (python)`` where
-none does).  :func:`device_time_s` times a callable by CUDA events.
+none does).
 """
 
 from __future__ import annotations
@@ -115,26 +114,3 @@ class Slice:
             name = names[covering[np.argmax(starts[covering])]] if covering.size else "host (python)"
             by_host[name] = by_host.get(name, 0.0) + (b - a) * 1e-6
         return [[k, v] for k, v in sorted(by_host.items(), key=lambda kv: -kv[1])[:10]]
-
-
-def device_time_s(fn, calls=50, warmup=5, device="cuda") -> float:
-    """Device seconds per call of ``fn()``: CUDA events around ``calls``
-    back-to-back calls, enqueued behind a device-side sleep so that the
-    host's launch cost does not space them out."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize(device)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize(device)
-    host_per_call = (time.perf_counter() - t0) / 3
-    # ~2 GHz: cycles for twice the host time of the calls, at least 10 ms
-    torch.cuda._sleep(int(max(2 * calls * host_per_call, 0.01) * 2e9))
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    torch.cuda.synchronize(device)
-    return start.elapsed_time(end) * 1e-3 / calls
