@@ -25,7 +25,8 @@ at the paper configuration.
 Phases, one JSON line each:
 
 1. device: torch/CUDA versions and the card's name and power limit;
-2. build: compile ``gpcsd_tpu_torch/csrc/quadform.cu`` for sm_90a; print
+2. build: compile ``gpcsd_tpu_torch/csrc/quadform.cu`` and
+   ``eigh_jacobi.cu`` into one library for sm_90a; print
    ptxas's registers and spills and ``cuobjdump -sass`` counts of the FP64
    tensor-core (``DMMA``) and async-copy (``LDGSTS``, ``UTMALDG``)
    instructions;
@@ -180,7 +181,21 @@ Phases, one JSON line each:
 35. noise_2d: ``noise_probe.probe`` on that surrogate at its generating point,
    card and CPU, 33 points each: values finite, RMS reported; then
    ``log_prob`` and its gradient card vs CPU on a second seed's surrogate at
-   its generating point (line ``noise_2d_seed1``), reported.
+   its generating point (line ``noise_2d_seed1``), reported;
+36. eigh_jacobi (after phase 3; alone with ``python3 chip_smoke.py
+   eigh_jacobi``, after phases 1-3): the batched block-Jacobi
+   eigensolver (``gpcsd_tpu_torch/ops/cuda/eigh.py``) on the cells' ``Kt``
+   (the auditory model's, n = 600, and the Neuropixels model's, n = 375) at
+   prior-drawn hyperparameters, C = 1, 4, 10, 20 rows: eigenvalues,
+   reconstruction and orthogonality against ``torch.linalg.eigh``, two calls
+   bit for bit, sweeps a row and no unconverged row; the plain version at
+   (2, 128) against the kernel; then its device ms (50 calls in one CUDA
+   graph) and eager ms at the shapes of ``EIGH_TIMED`` beside the per-row
+   ``torch.linalg.eigh`` loop the port ran before (``library_ms``), the
+   bound (9 n^3 a row at 67 TFLOP/s), the cluster size chosen and the
+   device ms at other cluster sizes; and, at C = 1 and 4 over
+   ``EIGH_SMALL_N``, kernel against library, which sets
+   ``kronlik.JACOBI_MIN_N``.
 
 The quadform launch counts (the scalar kernel's and, apart from it, the
 per-trial kernel's) are set to 0 before each stretch of the main path
@@ -191,7 +206,13 @@ its shift stage, workloads, each
 twin's run in io, workloads_sim and workloads_2d, and each sharded call of
 the parallel phase, in this process and in each rank) and read after it;
 ``predict`` and the other outputs solve with the factors and launch no
-kernel.  Any failure raises and the script
+kernel.  The ``eigh_jacobi`` launch counts, by the order of the matrices,
+are set to 0 before the same stretches (and before phase 36, predict,
+predict_2d, nuts_2d as a whole, shifts as a whole and parallel_ws1), and
+each rank reports its own; the log_prob stretch (its draws as one batch,
+beside the single draws, whose ``Kt`` of 600 goes to cuSOLVER alone),
+map_resume, nuts and fit_2d must each have launched the kernel at their
+``Kt``'s order (line ``eigh_jacobi_launches``; the kernel table's rows).  Any failure raises and the script
 exits non-zero.  Without CUDA, or run outside a checkout of the repository,
 it fails before printing a result.
 """
@@ -218,6 +239,7 @@ PEAK_FP64_TENSOR_FLOPS = 67e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 #: the shapes the two main paths give the kernel: (nx, nt, ntrials)
 SHAPE_1D, SHAPE_2D = (24, 600, 100), (69, 375, 100)
+NT_1D, NT_2D = SHAPE_1D[1], SHAPE_2D[1]  #: the orders of their temporal factors
 #: the shapes the analysis stages give it: the auditory twin's fit (200
 #: baseline samples of 400, 60 trials) and fit_mean_function's fit; and one
 #: trial at the shift stage's width (the shift stage itself goes through the
@@ -237,6 +259,10 @@ SHAPE_TEMPLATE, SHAPE_REAL_SHIFT = (24, 50, 1), (24, 151, 1)
 #: phase's written files) at 151 samples
 SHAPE_ROWS_SHIFT, SHAPE_ROWS_REAL = (24, 60, 40), (24, 151, 60)
 NPX_NX, NPX_NT = 36, 150
+#: the eigensolver's timed shapes (rows, n): the cells' rows a pass
+EIGH_TIMED = [(4, 600), (10, 600), (20, 600), (4, 375), (20, 375), (1, 600)]
+#: the orders at which kernel and library are compared for the small-n switch
+EIGH_SMALL_N = [24, 30, 40, 60, 100, 151, 200, 256, 300, 375]
 KERNEL_SHAPES = [
     SHAPE_1D, SHAPE_2D, SHAPE_AUD, SHAPE_FMF, SHAPE_SHIFT, SHAPE_SIM1D, SHAPE_MISMATCH,
     SHAPE_SIM2D, SHAPE_TEMPLATE, SHAPE_REAL_SHIFT, (7, 129, 3), (69, 375, 5),
@@ -414,6 +440,133 @@ class ShiftStageCount:
     def summary(self):
         return {"rows_launches": self.launches, "batched_evaluations": self.calls,
                 "rows_launches_by_batch": {str(k[2]): v for k, v in sorted(self.by_shape.items())}}
+
+
+def eigh_inputs(dev, rows, which, seed=0):
+    """``Kt`` of ``rows`` prior-drawn parameter rows of the cell's model
+    (``which``: "auditory", n = 600, or "neuropixels", n = 375), or of the
+    auditory model's temporal kernels on an n-sample grid (``which`` an
+    int n)."""
+    from gpcsd_tpu_torch import paper
+    from gpcsd_tpu_torch.infer.map import sample_restarts
+
+    key = "neuropixels" if which == "neuropixels" else "auditory"
+    if key not in _EIGH_MODELS:
+        if key == "auditory":
+            lfp, time_ms, _ = paper.paper_surrogate(0, 1200, 100, device=dev)
+            _EIGH_MODELS[key] = paper.build_model(lfp, time_ms, het_noise="exact", device=dev)._fns()
+        else:
+            _EIGH_MODELS[key] = paper.neuropixels_problem(0, device=dev)._fns()
+    fns = _EIGH_MODELS[key]
+    u = torch.tensor(sample_restarts(fns.param_set, np.random.default_rng(seed), rows), device=dev)
+    if isinstance(which, str):
+        return fns.graphs.inputs_half(u)[1].detach().contiguous()
+    theta = fns.full_theta(fns.param_set.unpack(u))
+    t = torch.arange(which, dtype=torch.float64, device=dev)
+    return fns.build_kt(theta, t=t, tprime=t).detach().contiguous()
+
+
+_EIGH_MODELS = {}
+
+
+def eigh_errors(a, w, v):
+    """Largest over rows: eigenvalue gap to ``torch.linalg.eigh`` over
+    ||A||_F, reconstruction error over ||A||_F, largest |V^T V - I|."""
+    wr = torch.linalg.eigh(a)[0]
+    nrm = torch.linalg.matrix_norm(a)
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    return {"eig": float(((w - wr).abs().amax(-1) / nrm).max()),
+            "rec": float((torch.linalg.matrix_norm(v @ torch.diag_embed(w) @ v.mT - a) / nrm).max()),
+            "orth": float((v.mT @ v - eye).abs().amax())}
+
+
+def library_loop_ms(a, iters=3):
+    """ms a call of the per-row ``torch.linalg.eigh`` loop the port ran
+    before (each call syncs on its error flag)."""
+    return cuda_ms(lambda: [torch.linalg.eigh(x) for x in a], iters)
+
+
+def phase_eigh_jacobi(dev, smi):
+    """The batched eigensolver on the cells' ``Kt``: checks, times, the
+    small-n switch (docstring, phase 36).  Returns the kernel table rows."""
+    from gpcsd_tpu_torch.ops import kronlik
+    from gpcsd_tpu_torch.ops.cuda import eigh as ej
+
+    worst = {"eig": 0.0, "rec": 0.0, "orth": 0.0}
+    sweeps = {}
+    for which, n in (("auditory", 600), ("neuropixels", 375)):
+        for rows in (1, 4, 10, 20):
+            a = eigh_inputs(dev, rows, which, seed=rows)
+            ej.stats(reset=True)
+            w, v = ej.eigh_jacobi_cuda(a)
+            st = ej.stats(reset=True)
+            w2, v2 = ej.eigh_jacobi_cuda(a)
+            torch.cuda.synchronize()
+            check(torch.equal(w, w2) and torch.equal(v, v2), f"eigh_jacobi ({rows}, {n}): two calls differ")
+            check(st["unconverged"] == 0, f"eigh_jacobi ({rows}, {n}): {st['unconverged']} rows unconverged")
+            errs = eigh_errors(a, w, v)
+            emit("eigh_jacobi_check", rows=rows, n=n, sweeps_per_row=st["sweeps"] / rows,
+                 cluster=ej.cluster_size(rows, n, dev), **errs)
+            sweeps[(rows, n)] = st["sweeps"] / rows
+            for k in worst:
+                worst[k] = max(worst[k], errs[k])
+    # every cluster size on the MAP cell's first pass: CTAs with several pairs
+    a = eigh_inputs(dev, 10, "auditory", seed=2147483713)
+    for k in (1, 2, 4, 8, 16):
+        errs = eigh_errors(a, *ej.eigh_jacobi_cuda(a, cluster=k))
+        emit("eigh_jacobi_check", rows=10, n=600, cluster=k, **errs)
+        for key in worst:
+            worst[key] = max(worst[key], errs[key])
+    check(worst["eig"] <= 1e-12, f"eigh_jacobi eigenvalues off by {worst['eig']} of ||A||")
+    check(worst["rec"] <= 1e-12, f"eigh_jacobi reconstruction off by {worst['rec']} of ||A||")
+    check(worst["orth"] <= 1e-11, f"eigh_jacobi V^T V - I up to {worst['orth']}")
+
+    # the plain version on the card at a small shape (it runs op by op)
+    a = eigh_inputs(dev, 2, 128, seed=5)
+    info = {}
+    t0 = time.perf_counter()
+    wp, vp = ej.eigh_jacobi_reference(a, info=info)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    wk, vk = ej.eigh_jacobi_cuda(a)
+    gap = float(((wk - wp).abs().amax(-1) / torch.linalg.matrix_norm(a)).max())
+    emit("eigh_jacobi_plain", rows=2, n=128, plain_ms=1e3 * plain_s, sweeps=info["sweeps"],
+         kernel_vs_plain_eig=gap, **eigh_errors(a, wp, vp))
+    check(gap <= 1e-12, f"eigh_jacobi kernel vs plain version: eigenvalues off by {gap}")
+
+    rows_out = []
+    for rows, n in EIGH_TIMED:
+        a = eigh_inputs(dev, rows, "auditory" if n == 600 else "neuropixels", seed=100 + rows)
+        before = ej.launch_count
+        k = ej.cluster_size(rows, n, dev)
+        device_ms = graph_ms(lambda: ej.eigh_jacobi_cuda(a), calls=10, replays=3)
+        eager_ms = cuda_ms(lambda: ej.eigh_jacobi_cuda(a), 5)
+        by_cluster = {}
+        for kk in sorted({2, 4, 8, 12, 16, k}):
+            if kk <= min(ej._ready(dev).eigh_jacobi_f64_max_cluster(), ej.padded_order(n) // ej.TILE):
+                by_cluster[kk] = cuda_ms(lambda: ej.eigh_jacobi_cuda(a, cluster=kk), 3)
+        lib_ms = library_loop_ms(a)
+        bound_ms = rows * 9.0 * n ** 3 / PEAK_FP64_TENSOR_FLOPS * 1e3
+        row = {"rows": rows, "n": n, "ms": device_ms, "eager_ms": eager_ms, "library_ms": lib_ms,
+               "bound_ms": bound_ms, "cluster": k, "ms_by_cluster": by_cluster,
+               "sweeps_per_row": sweeps.get((rows, n)), "launches": ej.launch_count - before,
+               "card": smi}
+        emit("eigh_jacobi_timing", **row)
+        rows_out.append(row)
+
+    small = {}
+    for n in EIGH_SMALL_N:
+        for rows in (1, 4):
+            a = eigh_inputs(dev, rows, n, seed=n)
+            errs = eigh_errors(a, *ej.eigh_jacobi_cuda(a))
+            check(errs["rec"] <= 1e-12 and errs["eig"] <= 1e-12, f"eigh_jacobi ({rows}, {n}): {errs}")
+            small[(rows, n)] = (cuda_ms(lambda: ej.eigh_jacobi_cuda(a), 5), library_loop_ms(a, 5))
+            emit("eigh_jacobi_small_n", rows=rows, n=n, kernel_ms=small[(rows, n)][0],
+                 library_ms=small[(rows, n)][1], **errs)
+    faster = {r: [n for n in EIGH_SMALL_N if small[(r, n)][0] < small[(r, n)][1]] for r in (1, 4)}
+    emit("eigh_jacobi_switch", kernel_faster_at_1_row=faster[1], kernel_faster_at_4_rows=faster[4],
+         jacobi_min_n=kronlik.JACOBI_MIN_N, jacobi_max_n_alone=kronlik.JACOBI_MAX_N_ALONE)
+    return rows_out
 
 
 def phase_kernel(qf, dev):
@@ -1902,6 +2055,7 @@ def _parallel_rank_cases(rank, device, init_file, lfp, time_ms, us):
     from gpcsd_tpu_torch.infer.nuts import chain_generators, nuts_chains
     from gpcsd_tpu_torch.infer.smc import smc_run
     from gpcsd_tpu_torch.models.inference_api import prior_starts, stream_generator
+    from gpcsd_tpu_torch.ops.cuda import eigh as ej
     from gpcsd_tpu_torch.ops.cuda import quadform as qf
     from gpcsd_tpu_torch.parallel import mesh as M
     from gpcsd_tpu_torch.parallel import sharded as S
@@ -1946,6 +2100,7 @@ def _parallel_rank_cases(rank, device, init_file, lfp, time_ms, us):
     out["smc21_temperatures"] = res["smc21"].temperatures.cpu().numpy()
     out["smc21_increments"] = res["smc21"].log_evidence_increments.cpu().numpy()
     out["nuts21_samples"] = res["nuts21"].samples.cpu().numpy()
+    out["eigh_jacobi_launches"] = dict(ej.launches_by_order)
     if rank != 0:
         return out
     # the unsharded twins
@@ -2002,7 +2157,8 @@ def max_rel_diff(a, b):
 def phase_parallel_ranks(lfp, time_ms, us, dev, smi, timeout=600.0):
     """(b) Two ranks spawned on the one card (NCCL refuses two ranks on one
     GPU, so gloo with the card's tensors): :func:`_parallel_rank_cases` on
-    each, checked here.  Returns the ranks' launches by run and by shape."""
+    each, checked here.  Returns the ranks' launches by run and by shape,
+    and their ``eigh_jacobi`` launches by order."""
     import multiprocessing as mp
     import queue
 
@@ -2052,6 +2208,7 @@ def phase_parallel_ranks(lfp, time_ms, us, dev, smi, timeout=600.0):
             r0["nuts21_samples"] - r0["nuts_samples_unsharded_one_by_one"]))),
     )
     by_phase = {ph: merge_counts(r0["by_phase"][ph], r1["by_phase"][ph]) for ph in r0["by_phase"]}
+    ej_launches = merge_counts(r0["eigh_jacobi_launches"], r1["eigh_jacobi_launches"])
     emit("parallel_ranks", card=smi, backend="gloo", world_size=2, seconds=seconds, **fields,
          collective_ms_per_value_grad=[r0["collective_ms_per_value_grad"],
                                        r1["collective_ms_per_value_grad"]],
@@ -2060,7 +2217,8 @@ def phase_parallel_ranks(lfp, time_ms, us, dev, smi, timeout=600.0):
          map_nll_unsharded_one_by_one=r0["map_nll_unsharded_one_by_one"].tolist(),
          smc21_stages=r0["smc21_temperatures"].size,
          run_seconds=r0["seconds"],
-         launches_by_run={ph: {shape_key(k): v for k, v in d.items()} for ph, d in by_phase.items()})
+         launches_by_run={ph: {shape_key(k): v for k, v in d.items()} for ph, d in by_phase.items()},
+         eigh_jacobi_launches=ej_launches)
     for k in ("value", "grad", "grad_temporal"):
         check(fields[f"{k}_rel_err"] <= TOL_PAR[k], f"parallel_ranks: sharded {k} off by "
               f"{fields[f'{k}_rel_err']}")
@@ -2081,7 +2239,7 @@ def phase_parallel_ranks(lfp, time_ms, us, dev, smi, timeout=600.0):
     check(ladder_same and smc_t <= TOL_PAR["smc"] and smc_i <= TOL_PAR["smc"],
           f"parallel_ranks: SMC ladder or increments off ({smc_t}, {smc_i})")
     check(np.isfinite(r0["nuts21_samples"]).all(), "parallel_ranks: a NUTS draw is not finite")
-    return by_phase
+    return by_phase, ej_launches
 
 
 # ------------------------------------- the bench twins and the 2D posterior
@@ -2272,6 +2430,16 @@ def phase_noise_2d(qf, dev, cpu, tmp, smi):
 
 
 
+def ej_counted(ej, by_phase, name, fn, *args):
+    """``fn(*args)`` with the ``eigh_jacobi`` launch counts set to 0 just
+    before; its launches by order go to ``by_phase[name]``."""
+    ej.launch_count = 0
+    ej.launches_by_order.clear()
+    out = fn(*args)
+    by_phase[name] = dict(ej.launches_by_order)
+    return out
+
+
 def npx_shapes(by_shape):
     """The Neuropixels twin's shapes among ``by_shape``'s keys."""
     return sorted(k for k in by_shape if k[:2] == (NPX_NX, NPX_NT))
@@ -2282,6 +2450,8 @@ def main():
     sys.path.insert(0, ROOT)
     from gpcsd_tpu_torch import paper
     from gpcsd_tpu_torch.infer.map import sample_restarts, value_and_grad
+    from gpcsd_tpu_torch.ops.cuda import eigh as ej
+    from gpcsd_tpu_torch.ops.cuda import library
     from gpcsd_tpu_torch.ops.cuda import quadform as qf
     from gpcsd_tpu_torch.utils.profiling import nvidia_smi
 
@@ -2292,15 +2462,19 @@ def main():
          count=torch.cuda.device_count(), nvidia_smi=smi)
 
     t0 = time.perf_counter()
-    lib = qf.build()
+    lib = library.build()
     seconds = time.perf_counter() - t0
     ptxas = [ln for ln in lib.with_suffix(".log").read_text().splitlines() if "ptxas" in ln]
-    sass = sass_counts(lib, qf.cuda_tool("cuobjdump"))
+    sass = sass_counts(lib, library.cuda_tool("cuobjdump"))
     emit("build", seconds=seconds, library=os.path.relpath(lib, ROOT), ptxas=ptxas, sass=sass)
     check(sass["DMMA"] > 0, "the kernel library holds no FP64 tensor-core (DMMA) instruction")
     check(sass["LDGSTS"] + sass["UTMALDG"] > 0, "the kernel library holds no async copy")
 
     abs_err = phase_kernel(qf, dev)
+    ej_by_phase = {}  # phase -> {order n: eigh_jacobi launches}
+    eigh_rows = ej_counted(ej, ej_by_phase, "eigh_jacobi", phase_eigh_jacobi, dev, smi)
+    if sys.argv[1:] == ["eigh_jacobi"]:
+        return
 
     # ---- the main path: counts from here to the end of the fit
     lfp, time_ms, _ = paper.paper_surrogate(0, 1200, 100, device=dev)
@@ -2312,6 +2486,8 @@ def main():
     gfns, gY = gpu._fns(), gpu._Y()
     cfns, cY = cpu._fns(), cpu._Y()
     qf.launch_count = 0
+    ej.launch_count = 0
+    ej.launches_by_order.clear()
     worst = {"banked": 0.0, "cpu_value": 0.0, "cpu_grad": 0.0, "cpu_grad_temporal": 0.0}
     for u, want in zip(draws, banked):
         v, g = value_and_grad(lambda ut: gfns.log_prob(ut, gY), u, dev)
@@ -2321,50 +2497,67 @@ def main():
         worst["cpu_value"] = max(worst["cpu_value"], rel(v, vc))
         worst["cpu_grad"] = max(worst["cpu_grad"], rel_norm(g, gc))
         worst["cpu_grad_temporal"] = max(worst["cpu_grad_temporal"], rel_norm(g[2:6], gc[2:6]))
+    # one draw's Kt (n = 600) goes to cuSOLVER alone; the draws as one batch
+    # go through the block-Jacobi kernel
+    with torch.no_grad():
+        vb = gfns.log_prob(torch.as_tensor(draws, device=dev), gY).cpu().numpy()
+    worst["batch_banked"] = float(np.max(np.abs(vb - banked) / np.abs(banked)))
     launches_log_prob = qf.launch_count
-    emit("log_prob", draws=len(draws), launches=launches_log_prob, **worst)
-    check(worst["banked"] <= 1e-8, "log_prob vs banked logp64_draws.npy above 1e-8")
+    ej_by_phase["log_prob"] = dict(ej.launches_by_order)
+    emit("log_prob", draws=len(draws), launches=launches_log_prob,
+         eigh_jacobi_launches=ej_by_phase["log_prob"], **worst)
+    check(max(worst["banked"], worst["batch_banked"]) <= 1e-8,
+          "log_prob vs banked logp64_draws.npy above 1e-8")
     check(worst["cpu_value"] <= 1e-9, "log_prob CUDA vs CPU above 1e-9")
     # the spatial (R, ell, noise) components carry ~1e-5 of eigensolver-
     # dependent regularization bias; the temporal ones do not
     check(worst["cpu_grad"] <= 1e-4, "gradient CUDA vs CPU above 1e-4 in norm")
     check(worst["cpu_grad_temporal"] <= 1e-6, "temporal gradient CUDA vs CPU above 1e-6")
     check(launches_log_prob > 0, "the log-joint did not go through the quadform kernel")
+    check(ej_by_phase["log_prob"].get(NT_1D, 0) > 0, "the log-joint's Kt did not go through eigh_jacobi")
     emit("launch_count", launches=launches_log_prob)
 
+    ej.launches_by_order.clear()
     t0 = time.perf_counter()
     res = gpu.fit(n_restarts=2, backend="scipy", seed=0, options={"maxiter": 10})
     fit_s = time.perf_counter() - t0
     launches_map = qf.launch_count
+    ej_by_phase["fit"] = dict(ej.launches_by_order)
     # ---- end of the log_prob + fit stretch of the main path
     u0s = sample_restarts(gfns.param_set, np.random.default_rng(0), 2)
     nll0 = np.array([value_and_grad(lambda ut: gfns.neg_log_joint(ut, gY), u, dev)[0] for u in u0s])
     emit("fit", seconds=fit_s, nll_start=nll0.tolist(), nll_end=res.nll_values.tolist(),
-         nll_best=res.nll_best, messages=res.messages)
+         nll_best=res.nll_best, messages=res.messages, eigh_jacobi_launches=ej_by_phase["fit"])
     check(np.isfinite(res.nll_best), "MAP fit: best NLL is not finite")
     check(np.all(res.nll_values <= nll0), "MAP fit: a restart ended above its start")
-    launches_map_resume = phase_map_resume(qf, gpu, smi)
+    launches_map_resume = ej_counted(ej, ej_by_phase, "map_resume", phase_map_resume, qf, gpu, smi)
+    check(ej_by_phase["map_resume"].get(NT_1D, 0) > 0, "the batched MAP fit's Kt did not go through eigh_jacobi")
 
     # before the nuts phase, whose profiler may leave its tracing cost on the
     # process's later launches
     device_ms, plain_device_ms = phase_timing(qf, dev, smi)
-    launches_bench, evals_per_s = phase_bench(qf, dev, smi)
+    launches_bench, evals_per_s = ej_counted(ej, ej_by_phase, "bench", phase_bench, qf, dev, smi)
 
     # ---- the 2D path at the Neuropixels shape; its profile comes last
     gpu2d = paper.neuropixels_problem(0, device=dev)
     cpu2d = paper.neuropixels_problem(0, device="cpu")
-    launches_log_prob_2d = phase_log_prob_2d(qf, gpu2d, cpu2d)
-    launches_fit_2d = phase_fit_2d(qf, paper, dev)
-    phase_predict_2d(gpu2d, cpu2d)
+    launches_log_prob_2d = ej_counted(ej, ej_by_phase, "log_prob_2d", phase_log_prob_2d,
+                                      qf, gpu2d, cpu2d)
+    launches_fit_2d = ej_counted(ej, ej_by_phase, "fit_2d", phase_fit_2d, qf, paper, dev)
+    check(ej_by_phase["fit_2d"].get(NT_2D, 0) > 0, "the 2D fit's Kt did not go through eigh_jacobi")
+    ej_counted(ej, ej_by_phase, "predict_2d", phase_predict_2d, gpu2d, cpu2d)
     timing_2d = phase_timing_2d(qf, gpu2d, smi)
     launches_2d = {"log_prob_2d": launches_log_prob_2d, "fit_2d": launches_fit_2d,
-                   "bench_2d": phase_bench_2d(qf, gpu2d, cpu2d, smi)}
+                   "bench_2d": ej_counted(ej, ej_by_phase, "bench_2d", phase_bench_2d,
+                                          qf, gpu2d, cpu2d, smi)}
     del cpu2d
     # ---- the 2D posterior: the probe's twin and the density's noise there
     tmp2d = tempfile.mkdtemp(prefix="nuts_2d_")
     try:
-        launches_2d["nuts_2d"], cpu_probe = phase_nuts_2d(qf, dev, smi, tmp2d)
-        launches_2d["noise_2d"] = phase_noise_2d(qf, dev, cpu_probe, tmp2d, smi)
+        launches_2d["nuts_2d"], cpu_probe = ej_counted(ej, ej_by_phase, "nuts_2d", phase_nuts_2d,
+                                                       qf, dev, smi, tmp2d)
+        launches_2d["noise_2d"] = ej_counted(ej, ej_by_phase, "noise_2d", phase_noise_2d,
+                                             qf, dev, cpu_probe, tmp2d, smi)
     finally:
         shutil.rmtree(tmp2d, ignore_errors=True)
     del cpu_probe
@@ -2374,40 +2567,47 @@ def main():
     u_center = banked_u.mean(axis=0)
     set_params(gpu, u_center)
     set_params(cpu, u_center)
-    phase_predict(gpu, cpu, time_ms)
-    H, launches_hessian = phase_hessian(qf, gpu, cpu, u_center, banked_u)
-    launches_nuts, post = phase_nuts(qf, gpu, H, u_center, banked_u, smi)
+    ej_counted(ej, ej_by_phase, "predict", phase_predict, gpu, cpu, time_ms)
+    H, launches_hessian = ej_counted(ej, ej_by_phase, "hessian", phase_hessian,
+                                     qf, gpu, cpu, u_center, banked_u)
+    launches_nuts, post = ej_counted(ej, ej_by_phase, "nuts", phase_nuts,
+                                     qf, gpu, H, u_center, banked_u, smi)
+    check(ej_by_phase["nuts"].get(NT_1D, 0) > 0, "the sampler's Kt did not go through eigh_jacobi")
     launches_by_phase = {"log_prob": launches_log_prob, "fit": launches_map - launches_log_prob,
                          "map_resume": launches_map_resume, "bench": launches_bench,
                          "hessian": launches_hessian, "nuts": launches_nuts}
 
     # ---- the other posterior engines, model comparison and the paper run
-    launches_by_phase["reparam"] = phase_reparam(qf, gpu, cpu, draws)
-    launches_by_phase["advi"] = phase_advi(qf, gpu, cpu, u_center)
-    launches_by_phase["smc"] = phase_smc(qf, gpu, cpu)
-    launches_by_phase["ic"] = phase_ic(qf, gpu, post)
-    launches_by_phase["paper_run"] = phase_paper_run(qf, smi)
-    launches_by_phase["noise_probe"] = phase_noise_probe(qf, gpu, cpu, lfp, time_ms, u_center, smi)
-    launches_by_phase["profiling"] = phase_profiling(qf, dev, smi, evals_per_s)
+    launches_by_phase["reparam"] = ej_counted(ej, ej_by_phase, "reparam", phase_reparam,
+                                              qf, gpu, cpu, draws)
+    launches_by_phase["advi"] = ej_counted(ej, ej_by_phase, "advi", phase_advi, qf, gpu, cpu, u_center)
+    launches_by_phase["smc"] = ej_counted(ej, ej_by_phase, "smc", phase_smc, qf, gpu, cpu)
+    launches_by_phase["ic"] = ej_counted(ej, ej_by_phase, "ic", phase_ic, qf, gpu, post)
+    launches_by_phase["paper_run"] = ej_counted(ej, ej_by_phase, "paper_run", phase_paper_run, qf, smi)
+    launches_by_phase["noise_probe"] = ej_counted(ej, ej_by_phase, "noise_probe", phase_noise_probe,
+                                                  qf, gpu, cpu, lfp, time_ms, u_center, smi)
+    launches_by_phase["profiling"] = ej_counted(ej, ej_by_phase, "profiling", phase_profiling,
+                                                qf, dev, smi, evals_per_s)
 
     # ---- the analysis stages and the two workload twins
     X = phase_signal(dev, smi)
     phase_torus(X, dev, smi)
     rows_shifts, rows_err = {}, {}
-    fit_fmf, rows_shifts["shifts"], rows_err[SHAPE_ROWS_SHIFT] = phase_shifts(qf, dev, smi)
-    wl, rows_shifts["workloads"] = phase_workloads(qf, dev, smi)
+    fit_fmf, rows_shifts["shifts"], rows_err[SHAPE_ROWS_SHIFT] = ej_counted(
+        ej, ej_by_phase, "shifts", phase_shifts, qf, dev, smi)
+    wl, rows_shifts["workloads"] = ej_counted(ej, ej_by_phase, "workloads", phase_workloads, qf, dev, smi)
 
     # ---- the real-data modes on written files, and the other five twins
-    wl_io, rows_real = phase_io(qf, dev, smi)
-    wl_sim = phase_workloads_sim(qf, dev, smi)
-    wl_2d = phase_workloads_2d(qf, dev, smi)
+    wl_io, rows_real = ej_counted(ej, ej_by_phase, "io", phase_io, qf, dev, smi)
+    wl_sim = ej_counted(ej, ej_by_phase, "workloads_sim", phase_workloads_sim, qf, dev, smi)
+    wl_2d = ej_counted(ej, ej_by_phase, "workloads_2d", phase_workloads_2d, qf, dev, smi)
 
     # ---- parallel/: one rank over NCCL, then two gloo ranks on the one card
     # (the kernel library is built above, so the ranks only load it)
     us_par = par_points(u_center)
-    ws1 = phase_parallel_ws1(qf, gpu, us_par, smi)
+    ws1 = ej_counted(ej, ej_by_phase, "parallel_ws1", phase_parallel_ws1, qf, gpu, us_par, smi)
     launches_by_phase["parallel_ws1"] = ws1.get(SHAPE_1D, 0)
-    par = phase_parallel_ranks(lfp, time_ms, us_par, dev, smi)
+    par, ej_by_phase["parallel_ranks"] = phase_parallel_ranks(lfp, time_ms, us_par, dev, smi)
     launches_by_phase["parallel_ranks"] = sum(d.get(SHAPE_1D, 0) for d in par.values())
     par_sharded = {ph: d.get(SHAPE_SHARDED, 0) for ph, d in par.items() if d.get(SHAPE_SHARDED, 0)}
     check(sum(par_sharded.values()) > 0, f"the trial-sharded block {SHAPE_SHARDED} launched no kernel")
@@ -2456,6 +2656,8 @@ def main():
     new_times[SHAPE_SHARDED] = (kt["quadform_device_ms"], kt["quadform_plain_device_ms"],
                                 *quadform_bound_ms(*SHAPE_SHARDED))
 
+    emit("eigh_jacobi_launches", launches=merge_counts(*ej_by_phase.values()),
+         launches_by_phase=ej_by_phase)
     bound_ms, bound_by = quadform_bound_ms(*SHAPE_1D)
     print(smi)
     # one kernel at the two shapes its main paths give it.  library_ms: no
@@ -2497,6 +2699,16 @@ def main():
            "max_abs_err": abs_err[shape], "ms": new_times[shape][0], "plain_ms": new_times[shape][1],
            "bound_ms": new_times[shape][2], "bound_by": new_times[shape][3]}
           for label, shape in new_rows),
+        # no TPU kernel: the temporal eigh, against the per-row cuSOLVER loop it replaces
+        # (launches: every launch at the row's order n, any row count, by phase)
+        *({"name": "eigh_jacobi", "shape": [r["rows"], r["n"]], "route": "cuda",
+           "source": "gpcsd_tpu_torch/csrc/eigh_jacobi.cu", "replaces": None,
+           "library_ms": r["library_ms"], "ms": r["ms"], "eager_ms": r["eager_ms"],
+           "bound_ms": r["bound_ms"], "bound_by": "operations", "cluster": r["cluster"],
+           "sweeps_per_row": r["sweeps_per_row"],
+           "launches": sum(d.get(r["n"], 0) for d in ej_by_phase.values()),
+           "launches_by_phase": {ph: d[r["n"]] for ph, d in ej_by_phase.items() if d.get(r["n"], 0)}}
+          for r in eigh_rows),
         {"name": "quadform at the trial-sharded block", "shape": list(SHAPE_SHARDED), **common,
          "launches": sum(par_sharded.values()), "launches_by_phase": par_sharded,
          "max_abs_err": abs_err[SHAPE_SHARDED], "ms": new_times[SHAPE_SHARDED][0],

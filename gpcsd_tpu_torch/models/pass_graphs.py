@@ -9,9 +9,11 @@ each side is a forward and a backward CUDA graph, replayed by one launch
 each through an autograd node:
 
 - the *inputs half*: ``u`` -> the spatial ``eigh``'s matrix and ``Kt``;
-- the factorization, eager as without graphs: the two
-  :func:`~gpcsd_tpu_torch.ops.kronlik.eigh_safe` calls in span
-  ``gpcsd.kronlik.comp_eig_d``, their host syncs and regularized backward;
+- the factorization, eager as without graphs: the temporal
+  :func:`~gpcsd_tpu_torch.ops.kronlik.temporal_eigh` (the block-Jacobi
+  kernel) and the spatial :func:`~gpcsd_tpu_torch.ops.kronlik.eigh_safe`
+  (cuSOLVER, a host sync) in span ``gpcsd.kronlik.comp_eig_d``, and their
+  regularized backward;
 - the *factors half*: the eigenpairs and ``u`` -> ``D``, the whitened
   spatial basis (exact heteroscedastic path only), the log-determinant term
   and the prior term (recomputed from ``u``, so the half takes tensors only);
@@ -189,7 +191,7 @@ class PassGraphs:
         half_a, half_b = halves or self.plain_halves(objective, Y)
         eigh_in, Kt = half_a(u)
         with span("gpcsd.kronlik.comp_eig_d"):
-            lam_t, qt = kronlik.eigh_safe(Kt)
+            lam_t, qt = kronlik.temporal_eigh(Kt)
             lam_s, qs = kronlik.eigh_safe(eigh_in)
         if self.whitened:
             d, logdet, prior, qs = half_b(lam_t, lam_s, u, qs)

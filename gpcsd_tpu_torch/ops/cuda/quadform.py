@@ -6,9 +6,9 @@
 Counterpart of the Pallas TPU kernel ``gpcsd_tpu/ops/pallas/quadform.py``
 (``_quadform_kernel``).  The kernel is ``gpcsd_tpu_torch/csrc/quadform.cu``
 (float64, sm_90a; its header says what bounds it and how it is laid out),
-compiled with ``nvcc`` into a shared library at first use and bound with
-ctypes.  The library is keyed on a hash of the source and flags and lives
-in ``gpcsd_tpu_torch/_build/``.  Importing this module needs no ``nvcc``.
+compiled with ``nvcc`` at first use into the port's one kernel library
+(:mod:`gpcsd_tpu_torch.ops.cuda.library`) and bound with ctypes.
+Importing this module needs no ``nvcc``.
 
 On a CPU tensor :func:`quadform` computes :func:`quadform_reference`; on a
 CUDA tensor it launches the kernel or raises.  The backward recomputes the
@@ -22,23 +22,11 @@ the shift stage's batched trials do; its launches are counted apart.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
 from ...utils.profiling import span
-
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "quadform.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from .library import load as _load_library
 
 #: Kernel launches since import (or since a caller reset it to 0); the
 #: wrapper adds one per launch of the CUDA kernel and nowhere else.
@@ -54,44 +42,10 @@ _lib = None
 _ready_devices: set[int] = set()  # devices where quadform_f64_init ran
 
 
-def cuda_tool(name: str = "nvcc") -> str:
-    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): under
-    ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``), else on PATH."""
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / name
-    if cand.exists():
-        return str(cand)
-    found = shutil.which(name)
-    if found is None:
-        raise RuntimeError(f"{name} not found: set CUDA_HOME or put it on PATH")
-    return found
-
-
-def build() -> Path:
-    """Compile ``csrc/quadform.cu`` unless a library for this exact source
-    and flag set exists; returns the library path.  The compiler's output
-    (``-Xptxas -v``: registers, shared memory, spills) is kept beside it as
-    ``<library>.log``."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"libquadform_{key.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run(
-        [cuda_tool(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
-
-
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = _load_library()
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.quadform_f64_init.argtypes = []
         lib.quadform_f64_init.restype = i32

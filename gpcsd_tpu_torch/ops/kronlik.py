@@ -9,7 +9,10 @@ Counterpart of ``gpcsd_tpu.ops.kronlik`` (the float64 path only).  For
 so the log-likelihood needs two small ``eigh`` calls plus the per-trial
 quadratic form ``sum (Qs^T Y_b Qt)^2 / D``, which
 :func:`gpcsd_tpu_torch.ops.cuda.quadform.quadform` computes (a hand-written
-kernel on the card, its plain version on the CPU).
+kernel on the card, its plain version on the CPU).  The temporal ``eigh``
+goes through :func:`temporal_eigh`: on the card the batched block-Jacobi
+kernel of :mod:`gpcsd_tpu_torch.ops.cuda.eigh`, on the CPU (and for small
+n, or a single large matrix) ``torch.linalg.eigh``.
 """
 
 from __future__ import annotations
@@ -19,9 +22,29 @@ from typing import NamedTuple
 import torch
 
 from ..utils.profiling import count, span
+from .cuda import eigh as _eigh_cuda
 from .cuda.quadform import quadform
 
 _EIGH_GAP_EPS = 1e-12
+
+#: The smallest order of ``Kt`` that the card factors by the block-Jacobi
+#: kernel; smaller ones go to ``torch.linalg.eigh`` (cuSOLVER).  From
+#: ``chip_smoke.py``'s phase ``eigh_jacobi`` on an H100 at 700 W: at four
+#: rows (the chains of a NUTS pass, a small fit's restarts) the kernel is 2-6x
+#: faster at every n from 30 to 375 (at 60: 0.37 against 2.91 ms), at one row
+#: it is faster at n = 60 and 100 (0.37 against 0.73 ms, 0.91 against 1.32) and
+#: within 30% either way elsewhere.  Below 60 the models are the tests' toys.
+JACOBI_MIN_N = 60
+#: The largest order at which a single matrix (a pass of one row) goes to the
+#: kernel; a larger one goes to ``torch.linalg.eigh``.  One matrix runs on one
+#: cluster of at most 16 CTAs, and its ~185 rounds at n = 600 are a chain.
+#: From ``chip_smoke.py``'s phase ``eigh_jacobi`` on an H100 at 700 W, one
+#: row, kernel against library: 2.72 against 2.81 ms at n = 300, 4.12 against
+#: 3.43 at 375, 9.81 against 6.29 at 600.  End to end at n = 600 through the
+#: kernel, a one-restart auditory fit took 2.37-2.39 s against 1.86-1.94 s
+#: through cuSOLVER, and a one-chain sampler drew 7.6-7.9 against 10.4-11.3
+#: draws/s.
+JACOBI_MAX_N_ALONE = 300
 
 
 class EighSafe(torch.autograd.Function):
@@ -48,7 +71,8 @@ class EighSafe(torch.autograd.Function):
 
     On the card ``torch.linalg.eigh`` reads its error flag back to the host,
     a sync per call (counter ``host_sync.kronlik.eigh``).  The backward runs
-    on autograd's device thread inside span ``gpcsd.kronlik.eigh_backward``.
+    on autograd's device thread inside span ``gpcsd.kronlik.eigh_backward``;
+    :class:`EighJacobi` shares it.
     """
 
     @staticmethod
@@ -57,10 +81,7 @@ class EighSafe(torch.autograd.Function):
         if a.ndim == 2:
             w, v = torch.linalg.eigh(a)
         else:
-            finite = torch.isfinite(a).all(dim=-1).all(dim=-1)
-            eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
-            w, v = torch.linalg.eigh(torch.where(finite[..., None, None], a, eye))
-            w = torch.where(finite[..., None], w, torch.nan)
+            w, v = _finite_rows(torch.linalg.eigh, a)
         ctx.save_for_backward(w, v)
         return w, v
 
@@ -82,10 +103,50 @@ class EighSafe(torch.autograd.Function):
             return 0.5 * (a_bar + a_bar.mT)
 
 
+def _finite_rows(eigh, a):
+    """``eigh`` of a batch with each matrix that holds a non-finite entry
+    replaced by I, and NaN eigenvalues for it."""
+    finite = torch.isfinite(a).all(dim=-1).all(dim=-1)
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    w, v = eigh(torch.where(finite[..., None, None], a, eye))
+    return torch.where(finite[..., None], w, torch.nan), v
+
+
+class EighJacobi(EighSafe):
+    """:class:`EighSafe`'s regularized backward around the card's batched
+    block-Jacobi eigensolver (:func:`gpcsd_tpu_torch.ops.cuda.eigh.eigh_jacobi_cuda`):
+    one launch for every matrix of the batch, no host sync.  A matrix with a
+    non-finite entry gives NaN eigenvalues, whether in a batch or alone."""
+
+    @staticmethod
+    def forward(ctx, a):
+        batch = a.shape[:-2]
+        flat = a.reshape(-1, *a.shape[-2:]).contiguous()
+        w, v = _finite_rows(_eigh_cuda.eigh_jacobi_cuda, flat)
+        w, v = w.reshape(*batch, -1), v.reshape(a.shape)
+        ctx.save_for_backward(w, v)
+        return w, v
+
+
 def eigh_safe(a):
     """``(eigenvalues, eigenvectors)`` like ``torch.linalg.eigh``, with the
     gap-regularized backward of :class:`EighSafe`."""
     return EighSafe.apply(a)
+
+
+def temporal_eigh(kt):
+    """The temporal factor's ``(eigenvalues, eigenvectors)``, with the
+    regularized backward of :class:`EighSafe`: the one dispatch point for
+    ``Kt``.  A CUDA ``Kt`` of order :data:`JACOBI_MIN_N` or more goes to the
+    batched block-Jacobi kernel (:class:`EighJacobi`: every row in one
+    launch, no host sync) when it holds two matrices or more, or one of
+    order :data:`JACOBI_MAX_N_ALONE` or less; a CPU one, a smaller one or a
+    single larger one to ``torch.linalg.eigh`` as :func:`eigh_safe` calls
+    it."""
+    n = kt.shape[-1]
+    if kt.is_cuda and n >= JACOBI_MIN_N and (kt.numel() > n * n or n <= JACOBI_MAX_N_ALONE):
+        return EighJacobi.apply(kt)
+    return EighSafe.apply(kt)
 
 
 class KronFactors(NamedTuple):
@@ -177,8 +238,9 @@ def comp_eig_d(Ks, Kt, sig2n, het_exact: bool = False) -> KronFactors:
 
     Matches reference ``comp_eig_D`` with D laid out (nx, nt): its flat
     ``Dvec = repeat(lam_s, nt) * tile(lam_t, nx) + sig2n`` is row-major
-    (nx, nt).  The composition of :func:`spatial_eigh_input`, the two
-    :func:`eigh_safe` calls and :func:`factors_from_eigenpairs`.
+    (nx, nt).  The composition of :func:`spatial_eigh_input`,
+    :func:`temporal_eigh` of ``Kt``, :func:`eigh_safe` of the spatial
+    matrix and :func:`factors_from_eigenpairs`.
 
     :param het_exact: with vector sig2n, use the exact noise-whitened
         factorization instead of the reference's approximation; no-op for
@@ -187,7 +249,7 @@ def comp_eig_d(Ks, Kt, sig2n, het_exact: bool = False) -> KronFactors:
     with span("gpcsd.kronlik.comp_eig_d"):
         sig2n = torch.as_tensor(sig2n, dtype=Ks.dtype, device=Ks.device)
         eigh_in = spatial_eigh_input(Ks, sig2n, het_exact)
-        lam_t, qt = eigh_safe(Kt)
+        lam_t, qt = temporal_eigh(Kt)
         lam_s, qs = eigh_safe(eigh_in)
         return factors_from_eigenpairs(lam_t, qt, lam_s, qs, sig2n, het_exact)
 

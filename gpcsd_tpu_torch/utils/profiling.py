@@ -23,6 +23,9 @@ The program's own instruments:
 - :func:`count`: a registry of event counters (``pass.count``,
   ``pass.rows``, ``host_sync.<site>``), always on, one dict addition an
   event; :func:`counters` reads it and :func:`reset_counters` clears it.
+  Counters a kernel keeps on the device (``kronlik.jacobi.sweeps``) join
+  the registry through :func:`add_counter_source`: read, and so waited
+  for, only when the registry is read.
 
 Neither changes a number the program computes.
 
@@ -61,19 +64,35 @@ _pass_ids = itertools.count(1)
 _NO_SPAN = contextlib.nullcontext()
 
 
+#: ``(read, reset)`` of each source of counters kept outside the registry
+_sources: list = []
+
+
 def count(name: str, n: int = 1):
     """Add ``n`` to the counter ``name``."""
     _counters[name] = _counters.get(name, 0) + n
 
 
+def add_counter_source(read, reset):
+    """Join counters kept elsewhere to the registry: ``read(host)`` gets
+    the registry's own counters and returns more (name -> value), at each
+    :func:`counters`; ``reset()`` runs at each :func:`reset_counters`."""
+    _sources.append((read, reset))
+
+
 def counters() -> dict:
     """A snapshot of every counter."""
-    return dict(_counters)
+    out = dict(_counters)
+    for read, _ in _sources:
+        out.update(read(out))
+    return out
 
 
 def reset_counters():
     """Set every counter back to nothing."""
     _counters.clear()
+    for _, reset in _sources:
+        reset()
 
 
 class _Span:

@@ -44,9 +44,10 @@ NOT_PORTED = {
     "infer.nuts:nuts_chains_chunked":
         "bounds each TPU dispatch; nuts_chains(state_path=, save_every=) checkpoints and resumes",
     "models.reparam:AmplitudeReparam.wrap_log_prob_aux": _WARM,
-    "ops.jacobi:eigh_jacobi": "iterative Jacobi eigensolver for the TPU; the port's eigh is float64 LAPACK/cuSOLVER",
+    "ops.jacobi:eigh_jacobi":
+        "the TPU's Jacobi eigensolver; the port's is ops.cuda.eigh.eigh_jacobi_cuda, a block Jacobi kernel",
     "ops.kronlik:comp_eig_d_preconditioned": "temporal eigh in a fixed reference basis, for the TPU's Jacobi solver",
-    "ops.kronlik:dct_basis": "DCT start basis of the TPU's Jacobi solver",
+    "ops.kronlik:dct_basis": "the Jacobi solver's start basis; the port's is ops.cuda.eigh.dct_basis, beside it",
     "ops.kronlik:eigh_mixed": "double-f32 eigensolver for the TPU",
     "ops.kronlik:orth_polish": _WARM,
     "parallel.mesh:chain_spec": _SPEC,
